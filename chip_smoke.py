@@ -1,0 +1,359 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (`rvc_tpu_torch`) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, one JSON line each (a `kernel` line per kernel call):
+  device    the card's name and power limit (nvidia-smi)
+  build     nvcc builds every kernel of `rvc_tpu_torch/csrc/` (seconds)
+  pipeline  the full-width 48 kHz model (random weights from seed 0)
+            converts a 13.5 s clip through `RVC.infer`; wall ms after a warm
+            call, the realtime factor, and each kernel's launches in that run
+  stages    device ms of each stage of one 13.5 s chunk (f0 program, HuBERT,
+            enc_p, flow, decoder) and the host's preparation time
+  kernel    every kernel-wrapper call of one more conversion of the clip,
+            recorded with its inputs (`ops.kernels.record_calls`) and
+            replayed: the kernel against its plain PyTorch version on the
+            same inputs (TF32 off), max_abs / rel_l2 / tolerance, median ms
+            over CUDA events after warmup for both, and the bound. The
+            replay must launch each kernel as often as the timed run did.
+  parity    a 2 s clip on the card and through the port's CPU path (the
+            plain versions), same weights, source noise off: waveform corr
+Then the `kernels` summary line (per kernel: the sums over its calls),
+the card line, and last {"ok": true, "device": {...}}. Any failed check
+raises: the exit code is non-zero and the last line is not printed.
+Without a CUDA device, or run outside the repository, it fails before
+printing any result.
+"""
+
+from __future__ import annotations
+
+import inspect
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+CLIP_S = 13.5
+PARITY_S = 2.0
+SEED = 0
+PEAK_F32_FLOPS = 67e12      # H100 SXM float32 outside the tensor cores
+PEAK_HBM_BYTES = 3.35e12    # H100 SXM HBM3
+BOUND = "max(FLOP / 67 TFLOP/s float32, bytes / 3.35 TB/s): H100 SXM peaks at 700 W"
+
+# keyed by wrapper name, which is also its launch counter's
+KERNELS = {
+    "resblock_group": dict(
+        name="K1 resblock_group", module="resblock", entry="rvc_resblock_step",
+        source="rvc_tpu_torch/csrc/resblock.cu",
+        replaces="rvc_tpu/ops/pallas/resblock.py:287 fused_resblock_group",
+        atol=1e-4, rtol=1e-4),
+    "resblock_chain": dict(
+        name="K2 resblock_chain", module="resblock", entry="rvc_resblock_step",
+        source="rvc_tpu_torch/csrc/resblock.cu",
+        replaces="rvc_tpu/ops/pallas/resblock.py:141 fused_resblock",
+        atol=1e-4, rtol=1e-4),
+    "rel_attention": dict(
+        name="K3 rel_attention", module="attention", entry="rvc_rel_attention",
+        source="rvc_tpu_torch/csrc/rel_attention.cu",
+        replaces="rvc_tpu/ops/pallas/attention.py:87 fused_rel_attention",
+        atol=1e-4, rtol=1e-4),
+    "log_mel": dict(
+        name="K4 log_mel", module="melspec", entry="rvc_log_mel",
+        source="rvc_tpu_torch/csrc/melspec.cu",
+        replaces="rvc_tpu/ops/pallas/melspec.py:61 pallas_log_mel",
+        atol=2e-3, rtol=1e-3),
+}
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, warmup: int = 2, reps: int = 5) -> float:
+    """Median milliseconds of fn() over CUDA events, after warmup."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    times.sort()
+    return times[len(times) // 2]
+
+
+def test_clip(seconds: float, seed: int):
+    """A voiced chirp (110 -> 330 Hz, with a 2nd harmonic) plus noise, 16 kHz."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * 16000)) / 16000
+    f = 110.0 * 3.0 ** (t / seconds)
+    phase = 2 * np.pi * np.cumsum(f) / 16000
+    y = 0.4 * np.sin(phase) + 0.1 * np.sin(2 * phase) + 0.02 * rng.standard_normal(len(t))
+    return (y * (0.6 + 0.4 * np.sin(2 * np.pi * 0.5 * t) ** 2)).astype(np.float32)
+
+
+def compare(got, ref, atol: float, rtol: float, what: str) -> dict:
+    import torch
+
+    diff = (got - ref).abs()
+    max_abs = float(diff.max())
+    rel_l2 = float(torch.linalg.vector_norm(got - ref) / torch.linalg.vector_norm(ref))
+    ok = bool((diff <= atol + rtol * ref.abs()).all()) and math.isfinite(max_abs)
+    if not ok:
+        raise AssertionError(f"{what}: kernel disagrees with its plain version "
+                             f"(max_abs {max_abs:.3g}, rel_l2 {rel_l2:.3g}, "
+                             f"tolerance |d| <= {atol} + {rtol}|ref|)")
+    return {"max_abs": max_abs, "rel_l2": rel_l2, "tol": f"|d| <= {atol} + {rtol}|ref|"}
+
+
+def work(name: str, a: dict) -> tuple:
+    """(FLOP, bytes) one wrapper call must do on these inputs: the bytes read
+    each input once and write each output once; the FLOP count the keys
+    this run's lengths leave valid."""
+    nbytes = 4 * sum(t.numel() for v in a.values()
+                     for t in (v if isinstance(v, (tuple, list)) else (v,))
+                     if hasattr(t, "numel"))
+    if name == "log_mel":
+        B, T = a["audio"].shape
+        frames, bins = 1 + T // a["hop"], a["n_fft"] // 2 + 1
+        flop = 2 * B * frames * bins * (2 * a["n_fft"] + a["n_mels"])
+        return flop, nbytes + 4 * B * frames * a["n_mels"]
+    if name == "rel_attention":
+        B, H, T, D = a["q"].shape
+        keys = sum(min(int(n), T) for n in a["key_lens"])   # valid keys over the batch
+        flop = 4 * H * T * keys * D + 4 * B * H * T * (2 * a["window_size"] + 1) * D
+        return flop, nbytes + a["q"].numel() * 4
+    B, T, C = a["x"].shape
+    if name == "resblock_chain":
+        taps = 2 * len(a["dilations"]) * a["kernel_size"]
+    else:
+        taps = sum(2 * len(d) * k for k, d in zip(a["kernel_sizes"], a["dilations"]))
+    return 2 * B * T * C * C * taps, nbytes + 4 * B * T * C
+
+
+def describe(a: dict) -> dict:
+    return {k: (list(v.shape) if v.numel() > 4 else v.tolist()) if hasattr(v, "numel")
+            else f"{len(v)} tensors" if isinstance(v, tuple) and hasattr(v[0], "numel")
+            else v for k, v in a.items()}
+
+
+def bound(flop: int, nbytes: int) -> tuple:
+    t_ops, t_bytes = flop / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def phase_kernels(calls: list, launches: dict) -> list:
+    """Replay each recorded wrapper call: check the kernel against its plain
+    version, then time both. Returns the per-kernel summary."""
+    import importlib
+
+    import torch
+
+    from rvc_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+
+    results = {}
+    with torch.inference_mode():
+        reset_launches()
+        checked = []
+        for fn, args, kwargs in calls:
+            name = fn.__name__
+            spec = KERNELS[name]
+            plain = getattr(importlib.import_module(f"rvc_tpu_torch.ops.kernels.{spec['module']}"),
+                            name + "_reference")
+            bound_args = inspect.signature(fn).bind(*args, **kwargs)
+            bound_args.apply_defaults()
+            a = bound_args.arguments
+            got, ref = fn(*args, **kwargs), plain(*args, **kwargs)
+            if name == "rel_attention":  # rows past the length differ by design
+                T = a["q"].shape[2]
+                valid = torch.arange(T, device=got.device)[None, :] < a["key_lens"].to(got.device)[:, None]
+                got, ref = got * valid[:, None, :, None], ref * valid[:, None, :, None]
+            desc = describe(a)
+            checked.append((fn, args, kwargs, plain, a, desc,
+                            compare(got, ref, spec["atol"], spec["rtol"], f"{name} {desc}")))
+            del got, ref
+        torch.cuda.synchronize()
+        replayed = dict(LAUNCHES)
+        if replayed != launches:
+            raise AssertionError(f"the recorded calls launch {replayed}, "
+                                 f"the timed conversion launched {launches}")
+        for fn, args, kwargs, plain, a, desc, cmp in checked:
+            name = fn.__name__
+            flop, nbytes = work(name, a)
+            ms = cuda_ms(lambda: fn(*args, **kwargs))
+            plain_ms = cuda_ms(lambda: plain(*args, **kwargs))
+            bound_ms, bound_by = bound(flop, nbytes)
+            emit({"phase": "kernel", "name": KERNELS[name]["name"], "inputs": desc, **cmp,
+                  "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                  "bound": BOUND})
+            r = results.setdefault(name, dict(flop=0, bytes=0, calls=0, max_abs_err=0.0,
+                                              ms=0.0, plain_ms=0.0))
+            r["flop"] += flop
+            r["bytes"] += nbytes
+            r["calls"] += 1
+            r["max_abs_err"] = max(r["max_abs_err"], cmp["max_abs"])
+            r["ms"] += ms
+            r["plain_ms"] += plain_ms
+    summary = []
+    for name, spec in KERNELS.items():
+        r = results.get(name)
+        if r is None:
+            raise AssertionError(f"the main path made no call of {name}")
+        bound_ms, bound_by = bound(r["flop"], r["bytes"])
+        summary.append(dict(
+            name=spec["name"], route="cuda", source=spec["source"], entry=spec["entry"],
+            replaces=spec["replaces"], launches=launches[name], calls=r["calls"],
+            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
+    return summary
+
+
+def phase_stages(rvc) -> None:
+    """Device time of each stage of one 13.5 s chunk (median CUDA-event ms),
+    beside the host's share of a conversion."""
+    import numpy as np
+    import torch
+    from torch.nn import functional as F
+
+    from rvc_tpu_torch.ops.kernels.melspec import log_mel
+    from rvc_tpu_torch.pipelines.offline import coarse_f0, upsample_protect
+    from rvc_tpu_torch.utils import audio as audio_utils
+
+    p, synth = rvc.pipeline, rvc.pipeline.synthesizer
+    clip = test_clip(CLIP_S, SEED)
+    t0 = time.perf_counter()
+    chunk = np.pad(audio_utils.highpass_filter(clip, 16000, 48.0, 5), (p.t_pad, p.t_pad),
+                   mode="reflect")
+    n = len(chunk)
+    padded = np.pad(chunk, (0, p._bucket_samples(n) - n), mode="reflect")
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    audio = torch.from_numpy(padded)[None].to(rvc.device)
+    st = {}
+    with torch.inference_mode():
+        mel = log_mel(audio)
+        pad = 32 * ((mel.shape[1] - 1) // 32 + 1) - mel.shape[1]
+        melp = F.pad(mel.transpose(1, 2), (0, pad), mode="reflect").transpose(1, 2)
+        st["f0 program"] = cuda_ms(lambda: p.f0(audio, 0.0, 0.0))
+        st["  log-mel (K4)"] = cuda_ms(lambda: log_mel(audio))
+        st["  RMVPE E2E"] = cuda_ms(lambda: p.rmvpe(melp))
+        st["    U-Net + cnn"] = cuda_ms(lambda: p.rmvpe.cnn(p.rmvpe.unet(melp[..., None])))
+        trunk = p.rmvpe.cnn(p.rmvpe.unet(melp[..., None]))
+        trunk = trunk.permute(0, 1, 3, 2).reshape(*trunk.shape[:2], -1)
+        st["    BiGRU + fc"] = cuda_ms(lambda: p.rmvpe.fc(trunk))
+        st["HuBERT"] = cuda_ms(lambda: p.hubert(audio))
+        f0 = p.f0(audio, 0.0, 0.0)
+        feats = p.hubert(audio)
+        feats = F.pad(feats.transpose(1, 2), (0, max(0, (f0.shape[1] + 1) // 2 - feats.shape[1])),
+                      mode="replicate").transpose(1, 2)
+        phone = upsample_protect(feats, feats, f0, 0.5)
+        lengths = torch.tensor([n // 160], device=rvc.device)
+        sid = torch.tensor([0], device=rvc.device)
+        pitch = coarse_f0(f0)
+        st["synthesizer"] = cuda_ms(lambda: synth.infer(phone, lengths, pitch, f0, sid))
+        m_p, _, x_mask = synth.enc_p(phone, pitch, lengths)
+        g = synth.emb_g(sid)[:, None, :]
+        st["  enc_p (K3)"] = cuda_ms(lambda: synth.enc_p(phone, pitch, lengths))
+        st["  flow"] = cuda_ms(lambda: synth.flow(m_p * x_mask, x_mask, g=g))
+        z = synth.flow(m_p * x_mask, x_mask, g=g) * x_mask
+        st["  decoder (K1, K2)"] = cuda_ms(lambda: synth.dec(z, f0, g=g))
+    emit({"phase": "stages", "clip_s": CLIP_S, "host_prep_ms": host_ms, "device_ms": st})
+
+
+def main() -> int:
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from rvc_tpu_torch.api import RVC
+    from rvc_tpu_torch.configs import get_config
+    from rvc_tpu_torch.ops.kernels import LAUNCHES, build, record_calls, reset_launches
+
+    kind = torch.cuda.get_device_name(0)
+    card = card_line()
+    emit({"phase": "device", "name": kind, "count": torch.cuda.device_count(),
+          "nvidia_smi": card, "torch": torch.__version__, "cuda": torch.version.cuda})
+
+    emit({"phase": "build", "seconds": build.build_all(verbose=True)})
+
+    t0 = time.perf_counter()
+    rvc = RVC(get_config(48000), seed=SEED, device="cuda")
+    emit({"phase": "model", "seconds": time.perf_counter() - t0,
+          "params_m": {n: sum(p.numel() for p in m.parameters()) / 1e6 for n, m in
+                       (("synthesizer", rvc.pipeline.synthesizer),
+                        ("hubert", rvc.pipeline.hubert), ("rmvpe", rvc.pipeline.rmvpe))}})
+
+    clip = test_clip(CLIP_S, SEED)
+    t0 = time.perf_counter()
+    rvc.infer(clip)                      # warm: cuDNN plans, allocator, kernel loads
+    warm_ms = 1e3 * (time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = rvc.infer(clip)
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    launches = dict(LAUNCHES)
+    want = int(CLIP_S * rvc.cfg.data.sample_rate)
+    emit({"phase": "pipeline", "clip_s": CLIP_S, "first_call_ms": warm_ms,
+          "wall_ms": wall_ms, "realtime_x": CLIP_S * 1e3 / wall_ms,
+          "out_samples": len(out), "peak": float(np.abs(out).max()),
+          "launches": launches,
+          "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+    if len(out) != want or not np.isfinite(out).all():
+        raise AssertionError(f"pipeline output: {len(out)} samples (want {want}), "
+                             f"finite={bool(np.isfinite(out).all())}")
+    missing = [k for k, n in launches.items() if n <= 0]
+    if missing:
+        raise AssertionError(f"the main path never launched {missing}")
+
+    phase_stages(rvc)
+
+    with record_calls() as calls:
+        rvc.infer(clip)
+    summary = phase_kernels(calls, launches)
+    del calls
+
+    clip = test_clip(PARITY_S, SEED + 1)
+    rvc.pipeline.source_noise = False
+    gpu = rvc.infer(clip)
+    cpu_rvc = RVC(get_config(48000), seed=SEED, device="cpu", source_noise=False)
+    t0 = time.perf_counter()
+    cpu = cpu_rvc.infer(clip)
+    if len(gpu) != len(cpu):
+        raise AssertionError(f"GPU gave {len(gpu)} samples, CPU {len(cpu)}")
+    corr = float(np.corrcoef(gpu, cpu)[0, 1])
+    emit({"phase": "parity", "clip_s": PARITY_S, "samples": len(gpu),
+          "waveform_corr": corr, "max_abs": float(np.abs(gpu - cpu).max()),
+          "cpu_seconds": time.perf_counter() - t0})
+    if not corr > 0.99:
+        raise AssertionError(f"GPU vs CPU waveform corr {corr}")
+
+    emit({"kernels": summary})
+    print(card, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

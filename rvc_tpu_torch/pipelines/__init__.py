@@ -1,0 +1,1 @@
+"""See the rvc_tpu_torch package docstring."""
