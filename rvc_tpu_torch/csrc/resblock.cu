@@ -3,167 +3,321 @@
 // Replaces rvc_tpu/ops/pallas/resblock.py : fused_resblock_group (K1, kernel
 // body _kernel_group :236-281, pallas_call :389) and fused_resblock (K2,
 // _kernel :94-135, pallas_call :212). Both compute, per ResBlock chain,
-//   for each dilation d:  cur += conv_k(lrelu(conv_{k,d}(lrelu(cur)) + b1) + b2
+//   for each dilation d:
+//     cur += conv_k(bf16(lrelu(conv_{k,d}(bf16(lrelu(cur)), bf16(w1)) + b1)), bf16(w2)) + b2
 // with every conv input zero outside [0, T); K1 then takes the mean over the
-// stage's parallel chains (k = 3, 7, 11).
+// stage's parallel chains (k = 3, 7, 11). This is the TPU kernel's own
+// arithmetic: bf16 conv operands (the LReLU'd, boundary-zeroed inputs and the
+// taps), float32 sums, biases, residual and stage mean.
 //
-// What bounds it on the H100: operations. A chain is 2 x T x C^2 x (sum of
-// its six kernel sizes) FLOP: 808 GFLOP for the 48 kHz model's C = 128 stage
-// of a 13.5 s clip against 200 MB in and out. This first version runs in
-// float32 FMA (the TPU kernel fed bf16 taps to its MXU); its bound is the
-// card's 67 TFLOP/s float32 peak. bf16 mma.sync / wgmma is later work.
+// What bounds it on the H100: operations. A chain is 2 x T x C^2 x (sum of its
+// six kernel sizes) FLOP: 808 GFLOP for the 48 kHz model's C = 128 stage of a
+// 13.5 s clip, against 200 MB in and out. Both convolutions run on the tensor
+// cores, mma.sync.m16n8k16 bf16 x bf16 -> f32, so the bound is the card's
+// 989 TFLOP/s dense bf16 rate; the per-step launches move each stage's float32
+// plane 9 times in and out (about 1.8 ms at 3.35 TB/s over K1's three calls),
+// which a whole chain per launch would remove.
 //
 // Design: one launch per dilation step, with both convolutions, both LReLUs,
 // both biases, the boundary zeroing and the residual fused; the last step of a
-// chain also folds in the stage mean (y = alpha * result + beta * y). A
-// block owns a time tile of TT outputs of one batch row, channels last:
-//   A  = lrelu(x) on TT + 2 (h1 + h2) rows    (h1 = (k-1)/2 d, h2 = (k-1)/2)
-//   Bf = lrelu(conv1(A) + b1) on TT + 2 h2 rows
-//   y  = x + conv2(Bf) + b2 on TT rows
-// both staged in shared memory (rows padded to C + 1 floats, conflict-free).
-// A whole chain in one pass (the TPU's design) needs three float32 planes of
-// tile plus 120 halo rows, more than shared memory holds at a useful tile for
-// C >= 128. Per-step launches move the C = 128 stage's 100 MB plane 9 times
-// in and out (1.8 GB against 0.2 GB for one fused stage: about 0.5 ms more
-// at 3.35 TB/s), small beside the 12 ms operation bound.
-// Each conv is a product over (tap, input channel): a thread owns 4 output
-// channels (a float4 of the (K, Cin, Cout) weights, read through L1/L2) for
-// up to 12 rows, so one weight load feeds 48 FMAs and the A values are
-// warp-wide broadcasts from shared memory.
+// chain also folds in the stage mean (y = alpha * result + beta * y). A block
+// of 8 warps owns a time tile of TT = 16384 / C output rows of one batch row
+// and all C output channels. Each conv is a GEMM over (tap, input channel):
+//   out[r, n] = sum_{tau, ci} plane[r + tau * dil, ci] * W[n, tau * C + ci]
+// Shared memory holds a bf16 activation plane, rows padded by 16 bytes so
+// that the 8 rows of an ldmatrix fall on distinct banks at any row shift:
+//   A  = bf16(lrelu(x)), zero outside [0, T), TT + 2 (h1 + h2) rows, then
+//   Bf = bf16(lrelu(conv1(A) + b1)), zero outside [0, T), TT + 2 h2 rows
+// (h1 = (k-1)/2 d, h2 = (k-1)/2). A tap at row shift tau * dil is an ldmatrix
+// from rows r + tau * dil. The weights, bf16 (Cout, K * Cin) per conv from the
+// wrapper, stream through shared memory in 16 KB chunks of whole rows,
+// double-buffered with cp.async; conv2's first chunk loads while conv1 ends.
+// Two blocks share an SM (MIN_BLOCKS). Each warp holds 32 output channels (4 n8
+// tiles) of up to 5 m16 row tiles as float32 accumulators, so one k16 step is
+// 2 ldmatrix.x4 of B, up to 5 of A and up to 20 mma. conv1 computes TT + 2 h2
+// rows rounded up to 16 (A keeps 15 slack rows so the padded tile reads inside
+// the plane); conv2 exactly TT. The tensor cores truncate as they accumulate:
+// each row tile sums 2 k16 steps (32 products) in fresh registers and adds
+// them to its float32 accumulators, which keeps the kernel as close to exact
+// sums as a float32 FMA loop (conv_mma).
+// Left for later: wgmma (64-row A tiles from swizzled shared memory, which
+// arbitrary row shifts break), TMA, a persistent grid, a whole chain per launch.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int RMAX = 12;  // rows per thread per pass
+constexpr int THREADS = 256;             // 8 warps
+constexpr int WARPS = THREADS / 32;
+constexpr int NJ = 4;                    // n8 tiles per warp: 32 output channels
+constexpr int MI = 5;                    // m16 tiles per warp, at most
+constexpr int KG = 2;                    // k16 steps summed apart before acc
+constexpr int PAD = 8;                   // bf16 padding of each shared row (16 bytes)
+constexpr int MAX_SMEM = 232448;         // H100: 227 KB a block
+constexpr int MAX_K = 17;                // conv1 needs at most TT / 16 + 1 row tiles
+// Two blocks share an SM, so one's plane loads, epilogue and barriers overlap
+// the other's mma: at most 128 registers a thread and 113 KB of shared memory
+// a block (the A plane, which Bf then overwrites, and two 16 KB weight chunks:
+// 112 KB at C = 256, k = 11, d = 5).
+constexpr int MIN_BLOCKS = 2;
+constexpr int CHUNK_BYTES = 16384;
 
-template <int C> struct Tile;
-template <> struct Tile<32> { static constexpr int TT = 256; };
-template <> struct Tile<64> { static constexpr int TT = 128; };
-template <> struct Tile<128> { static constexpr int TT = 64; };
-template <> struct Tile<256> { static constexpr int TT = 32; };
+template <int C> struct Cfg {
+  static constexpr int TT = 16384 / C;          // 512, 256, 128, 64 output rows
+  static constexpr int WN = C / 32;             // warps across channels
+  static constexpr int WM = WARPS / WN;         // warps across rows
+  static constexpr int LD = C + PAD;            // plane row stride (bf16)
+  static constexpr int KCH = CHUNK_BYTES / 2 / C;  // weight columns a chunk
+  static constexpr int WLD = KCH + PAD;         // weight row stride (bf16)
+  static_assert(TT / 16 == 4 * WM, "conv2's row tiles split 4 per warp");
+  static_assert(KCH % 32 == 0, "a chunk holds whole KG groups of k16 steps");
+};
 
 __device__ __forceinline__ float lrelu(float v, float slope) {
   return v > 0.f ? v : v * slope;
 }
 
-// out rows [0, n_out) of a conv over src (rows strided by C + 1): row r reads
-// src rows r + tau * dil. epi(r, co, acc) gets 4 channels co..co+3 of row r.
-template <int C, typename Epi>
-__device__ __forceinline__ void conv_tile(const float* __restrict__ src, int n_out,
-                                          int K, int dil, const float* __restrict__ w,
-                                          const float* __restrict__ bias, Epi epi) {
-  constexpr int LD = C + 1;
-  constexpr int G = C / 4;          // threads covering one row's channels
-  constexpr int NG = THREADS / G;   // row groups
-  const int g = threadIdx.x / G;
-  const int co = (threadIdx.x % G) * 4;
-  const float4 b4 = __ldg(reinterpret_cast<const float4*>(bias + co));
-  for (int r0 = g; r0 < n_out; r0 += NG * RMAX) {
-    float4 acc[RMAX];
-    int rowoff[RMAX];
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t& r0, uint32_t& r1, uint32_t& r2,
+                                        uint32_t& r3, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(addr));
+}
+
+// d += a (16x16, row) * b (16x8, col): bf16 operands, float32 accumulators
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Weight chunk q of the step (conv1's chunks, then conv2's) into buffer q & 1.
+template <int C>
+__device__ __forceinline__ void load_chunk(int q, int nchunk, int KC,
+                                           const __nv_bfloat16* __restrict__ w1,
+                                           const __nv_bfloat16* __restrict__ w2,
+                                           __nv_bfloat16* wbuf) {
+  using G = Cfg<C>;
+  const __nv_bfloat16* wg = q < nchunk ? w1 : w2;
+  const int k0 = (q % nchunk) * G::KCH;
+  const int pieces = min(G::KCH, KC - k0) / 8;  // 16-byte pieces a row
+  __nv_bfloat16* dst = wbuf + (q & 1) * C * G::WLD;
+  for (int i = threadIdx.x; i < C * pieces; i += THREADS) {
+    const int n = i / pieces, j = i - n * pieces;
+    cp_async16(smem_u32(dst + n * G::WLD + j * 8), wg + (size_t)n * KC + k0 + j * 8);
+  }
+  cp_async_commit();
+}
+
+// acc = sum over the conv's chunks q0 .. q0 + nchunk - 1 of plane x weights, for
+// this warp's row tiles mt = wm + i * WM (< Mt) and channels n0 .. n0 + 31.
+// Prefetches the next chunk of the step while it computes on this one.
+// The tensor cores truncate as they accumulate, so one long chain of mma
+// drifts: on k = 11, C = 256 chains on an H100, 1.4x as far from the float64
+// sums as cuDNN's float32 convs. Each row tile sums KG k16 steps in fresh
+// registers and adds them to acc in float32, which brings it to 0.75x.
+template <int C>
+__device__ __forceinline__ void conv_mma(float (&acc)[MI][NJ][4],
+                                         const __nv_bfloat16* plane, int Mt, int dil,
+                                         int q0, int nchunk, int KC,
+                                         const __nv_bfloat16* __restrict__ w1,
+                                         const __nv_bfloat16* __restrict__ w2,
+                                         __nv_bfloat16* wbuf) {
+  using G = Cfg<C>;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = warp / G::WN, n0 = (warp % G::WN) * 32;
+  // ldmatrix row addresses: A rows lane % 16 at k + (lane / 16) * 8; B rows
+  // (channels) n0 + (lane / 16) * 8 + lane % 8 at k + ((lane / 8) % 2) * 8
+  const uint32_t a_lane =
+      smem_u32(plane) + 2 * ((lane & 15) * G::LD + (lane >> 4) * 8 + wm * 16 * G::LD);
+  const int b_lane = 2 * ((n0 + ((lane >> 4) << 3) + (lane & 7)) * G::WLD + ((lane >> 3) & 1) * 8);
 #pragma unroll
-    for (int i = 0; i < RMAX; ++i) {
-      acc[i] = b4;
-      rowoff[i] = min(r0 + i * NG, n_out - 1) * LD;  // clamp: stay in the buffer
-    }
-    for (int tau = 0; tau < K; ++tau) {
-      const float* s = src + tau * dil * LD;
-      const float4* wt = reinterpret_cast<const float4*>(w + (size_t)tau * C * C + co);
-#pragma unroll 4
-      for (int ci = 0; ci < C; ++ci) {
-        const float4 wv = __ldg(wt + ci * (C / 4));
+  for (int i = 0; i < MI; ++i)
 #pragma unroll
-        for (int i = 0; i < RMAX; ++i) {
-          const float a = s[rowoff[i] + ci];
-          acc[i].x = fmaf(a, wv.x, acc[i].x);
-          acc[i].y = fmaf(a, wv.y, acc[i].y);
-          acc[i].z = fmaf(a, wv.z, acc[i].z);
-          acc[i].w = fmaf(a, wv.w, acc[i].w);
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  for (int c = 0; c < nchunk; ++c) {
+    const int q = q0 + c;
+    cp_async_wait_all();
+    __syncthreads();  // chunk q and the plane are in; buffer (q + 1) & 1 is free
+    if (q + 1 < 2 * nchunk) load_chunk<C>(q + 1, nchunk, KC, w1, w2, wbuf);
+    const uint32_t wsm = smem_u32(wbuf + (q & 1) * C * G::WLD) + b_lane;
+    const int k0 = c * G::KCH;
+    const int nk = min(G::KCH, KC - k0) / 16;  // even, as C / 16 and KCH / 16 are
+    for (int ks = 0; ks < nk; ks += KG) {
+      uint32_t b[KG][NJ][2];
+      uint32_t a_k[KG];
+#pragma unroll
+      for (int s = 0; s < KG; ++s) {
+        const int kk = k0 + (ks + s) * 16;
+#pragma unroll
+        for (int jp = 0; jp < NJ / 2; ++jp)
+          ldsm_x4(b[s][2 * jp][0], b[s][2 * jp][1], b[s][2 * jp + 1][0], b[s][2 * jp + 1][1],
+                  wsm + 2 * (16 * jp * G::WLD + (ks + s) * 16));
+        a_k[s] = a_lane + 2 * ((kk / C) * dil * G::LD + kk % C);
+      }
+#pragma unroll
+      for (int i = 0; i < MI; ++i) {
+        if (wm + i * G::WM < Mt) {
+          float part[NJ][4] = {};
+#pragma unroll
+          for (int s = 0; s < KG; ++s) {
+            uint32_t a[4];
+            ldsm_x4(a[0], a[1], a[2], a[3], a_k[s] + 2 * (i * G::WM * 16 * G::LD));
+#pragma unroll
+            for (int j = 0; j < NJ; ++j) mma_bf16(part[j], a, b[s][j][0], b[s][j][1]);
+          }
+#pragma unroll
+          for (int j = 0; j < NJ; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[i][j][e] += part[j][e];
         }
       }
     }
-#pragma unroll
-    for (int i = 0; i < RMAX; ++i) {
-      const int r = r0 + i * NG;
-      if (r < n_out) epi(r, co, acc[i]);
-    }
   }
 }
 
 template <int C>
-__global__ void __launch_bounds__(THREADS) resblock_step_kernel(
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS) resblock_step_kernel(
     const float* __restrict__ x, float* __restrict__ y,
-    const float* __restrict__ w1, const float* __restrict__ b1,
-    const float* __restrict__ w2, const float* __restrict__ b2,
+    const __nv_bfloat16* __restrict__ w1, const float* __restrict__ b1,
+    const __nv_bfloat16* __restrict__ w2, const float* __restrict__ b2,
     int T, int K, int dil, float slope, float alpha, float beta) {
-  extern __shared__ float smem[];
-  constexpr int LD = C + 1;
-  constexpr int TT = Tile<C>::TT;
+  using G = Cfg<C>;
+  constexpr int TT = G::TT, LD = G::LD;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   const int h1 = (K - 1) / 2 * dil, h2 = (K - 1) / 2;
   const int W1 = TT + 2 * (h1 + h2), W2 = TT + 2 * h2;
-  float* A = smem;             // W1 rows
-  float* Bf = smem + W1 * LD;  // W2 rows
+  __nv_bfloat16* wbuf = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // 2 chunks
+  __nv_bfloat16* A = wbuf + 2 * C * G::WLD;                          // W1 + 15 rows
+  __nv_bfloat16* Bf = A;  // W2 rows, over A once conv1 has read it
+  const int KC = K * C;
+  const int nchunk = (KC + G::KCH - 1) / G::KCH;
+
+  load_chunk<C>(0, nchunk, KC, w1, w2, wbuf);
+
   const int t0 = blockIdx.x * TT;
   const float* xb = x + (size_t)blockIdx.y * T * C;
   float* yb = y + (size_t)blockIdx.y * T * C;
-
   const int ta = t0 - h1 - h2;  // time of A's row 0
-  for (int i = threadIdx.x; i < W1 * (C / 4); i += THREADS) {
-    const int r = i / (C / 4), c = (i % (C / 4)) * 4;
-    const int t = ta + r;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (t >= 0 && t < T) v = *reinterpret_cast<const float4*>(xb + (size_t)t * C + c);
-    float* dst = A + r * LD + c;
-    dst[0] = lrelu(v.x, slope);
-    dst[1] = lrelu(v.y, slope);
-    dst[2] = lrelu(v.z, slope);
-    dst[3] = lrelu(v.w, slope);
-  }
-  __syncthreads();
-
-  const int tb = t0 - h2;  // time of Bf's row 0
-  conv_tile<C>(A, W2, K, dil, w1, b1, [&](int r, int co, float4 acc) {
-    const bool ok = tb + r >= 0 && tb + r < T;
-    float* dst = Bf + r * LD + co;
-    dst[0] = ok ? lrelu(acc.x, slope) : 0.f;
-    dst[1] = ok ? lrelu(acc.y, slope) : 0.f;
-    dst[2] = ok ? lrelu(acc.z, slope) : 0.f;
-    dst[3] = ok ? lrelu(acc.w, slope) : 0.f;
-  });
-  __syncthreads();
-
-  conv_tile<C>(Bf, TT, K, 1, w2, b2, [&](int r, int co, float4 acc) {
-    const int t = t0 + r;
-    if (t >= T) return;
-    const float4 xv = *reinterpret_cast<const float4*>(xb + (size_t)t * C + co);
-    float4 res = make_float4(alpha * (xv.x + acc.x), alpha * (xv.y + acc.y),
-                             alpha * (xv.z + acc.z), alpha * (xv.w + acc.w));
-    float4* dst = reinterpret_cast<float4*>(yb + (size_t)t * C + co);
-    if (beta != 0.f) {
-      const float4 old = *dst;
-      res.x += beta * old.x;
-      res.y += beta * old.y;
-      res.z += beta * old.z;
-      res.w += beta * old.w;
+  constexpr int FILL = 4;  // float4 loads in flight a thread
+  const int n_fill = (W1 + 15) * (C / 4);
+  for (int i0 = threadIdx.x; i0 < n_fill; i0 += FILL * THREADS) {
+    float4 v[FILL];
+#pragma unroll
+    for (int u = 0; u < FILL; ++u) {
+      const int i = i0 + u * THREADS, r = i / (C / 4), t = ta + r;
+      v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (i < n_fill && r < W1 && t >= 0 && t < T)
+        v[u] = __ldg(reinterpret_cast<const float4*>(xb + (size_t)t * C + (i % (C / 4)) * 4));
     }
-    *dst = res;
-  });
+#pragma unroll
+    for (int u = 0; u < FILL; ++u) {
+      const int i = i0 + u * THREADS;
+      if (i < n_fill) {
+        __nv_bfloat162* dst =
+            reinterpret_cast<__nv_bfloat162*>(A + (i / (C / 4)) * LD + (i % (C / 4)) * 4);
+        dst[0] = __floats2bfloat162_rn(lrelu(v[u].x, slope), lrelu(v[u].y, slope));
+        dst[1] = __floats2bfloat162_rn(lrelu(v[u].z, slope), lrelu(v[u].w, slope));
+      }
+    }
+  }
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = warp / G::WN, n0 = (warp % G::WN) * 32;
+  const int g = lane >> 2, t4 = lane & 3;  // accumulator row g (+8), columns 2 t4 (+1)
+  float acc[MI][NJ][4];
+
+  // conv1 on W2 rows rounded up to 16; its epilogue writes Bf's W2 rows
+  conv_mma<C>(acc, A, (W2 + 15) / 16, dil, 0, nchunk, KC, w1, w2, wbuf);
+  __syncthreads();  // every warp is done reading A
+  const int tb = t0 - h2;  // time of Bf's row 0
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const int n = n0 + 8 * j + 2 * t4;
+    const float2 bb = *reinterpret_cast<const float2*>(b1 + n);
+#pragma unroll
+    for (int i = 0; i < MI; ++i) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = (wm + i * G::WM) * 16 + g + 8 * h;
+        if (r < W2) {
+          const bool ok = tb + r >= 0 && tb + r < T;
+          const float v0 = ok ? lrelu(acc[i][j][2 * h] + bb.x, slope) : 0.f;
+          const float v1 = ok ? lrelu(acc[i][j][2 * h + 1] + bb.y, slope) : 0.f;
+          *reinterpret_cast<__nv_bfloat162*>(Bf + r * LD + n) = __floats2bfloat162_rn(v0, v1);
+        }
+      }
+    }
+  }
+
+  // conv2 on TT rows, then y = alpha * (x + conv2 + b2) + beta * y
+  conv_mma<C>(acc, Bf, TT / 16, 1, nchunk, nchunk, KC, w1, w2, wbuf);
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const int n = n0 + 8 * j + 2 * t4;
+    const float2 bb = *reinterpret_cast<const float2*>(b2 + n);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int t = t0 + (wm + i * G::WM) * 16 + g + 8 * h;
+        if (t < T) {
+          const float2 xv = __ldg(reinterpret_cast<const float2*>(xb + (size_t)t * C + n));
+          float2* dst = reinterpret_cast<float2*>(yb + (size_t)t * C + n);
+          float2 res = make_float2(alpha * (xv.x + acc[i][j][2 * h] + bb.x),
+                                   alpha * (xv.y + acc[i][j][2 * h + 1] + bb.y));
+          if (beta != 0.f) {
+            const float2 old = *dst;
+            res.x += beta * old.x;
+            res.y += beta * old.y;
+          }
+          *dst = res;
+        }
+      }
+    }
+  }
 }
 
 template <int C>
-int launch(const float* x, float* y, const float* w1, const float* b1, const float* w2,
-           const float* b2, int B, int T, int K, int dil, float slope, float alpha,
-           float beta, cudaStream_t stream) {
-  constexpr int TT = Tile<C>::TT;
+int launch(const float* x, float* y, const __nv_bfloat16* w1, const float* b1,
+           const __nv_bfloat16* w2, const float* b2, int B, int T, int K, int dil,
+           float slope, float alpha, float beta, cudaStream_t stream) {
+  using G = Cfg<C>;
+  // the opt-in shared memory limit, set once for this instantiation
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      resblock_step_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+  if (attr != cudaSuccess) return (int)attr;
   const int h1 = (K - 1) / 2 * dil, h2 = (K - 1) / 2;
-  const size_t smem = (size_t)(2 * TT + 2 * h1 + 4 * h2) * (C + 1) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      resblock_step_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((T + TT - 1) / TT, B);
+  const size_t rows = (size_t)(G::TT + 2 * (h1 + h2) + 15);
+  const size_t smem = 2 * ((size_t)2 * C * G::WLD + rows * G::LD);
+  if (K % 2 == 0 || K > MAX_K || dil < 1 || smem > (size_t)MAX_SMEM)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((T + G::TT - 1) / G::TT, B);
   resblock_step_kernel<C><<<grid, THREADS, smem, stream>>>(x, y, w1, b1, w2, b2, T, K, dil,
                                                            slope, alpha, beta);
   return (int)cudaGetLastError();
@@ -172,18 +326,21 @@ int launch(const float* x, float* y, const float* w1, const float* b1, const flo
 }  // namespace
 
 // One dilation step of a ResBlock chain: y = alpha * (x + conv2(...)) + beta * y.
-// x, y: (B, T, C) float32, distinct buffers; w1, w2: (K, C, C) as (tap, in,
-// out); b1, b2: (C,). K odd. C in {32, 64, 128, 256}. beta == 0 never reads y.
-// Returns cudaGetLastError() (cudaErrorInvalidValue for another C).
-extern "C" int rvc_resblock_step(const float* x, float* y, const float* w1,
-                                 const float* b1, const float* w2, const float* b2,
+// x, y: (B, T, C) float32, distinct buffers; w1, w2: (C, K, C) bf16 as (out, tap,
+// in); b1, b2: (C,) float32. K odd, at most 17. C in {32, 64, 128, 256}.
+// beta == 0 never reads y. Returns cudaGetLastError() (cudaErrorInvalidValue for
+// a shape the kernel does not take).
+extern "C" int rvc_resblock_step(const float* x, float* y, const void* w1,
+                                 const float* b1, const void* w2, const float* b2,
                                  int B, int T, int C, int K, int dil, float slope,
                                  float alpha, float beta, cudaStream_t stream) {
+  const auto* v1 = static_cast<const __nv_bfloat16*>(w1);
+  const auto* v2 = static_cast<const __nv_bfloat16*>(w2);
   switch (C) {
-    case 32: return launch<32>(x, y, w1, b1, w2, b2, B, T, K, dil, slope, alpha, beta, stream);
-    case 64: return launch<64>(x, y, w1, b1, w2, b2, B, T, K, dil, slope, alpha, beta, stream);
-    case 128: return launch<128>(x, y, w1, b1, w2, b2, B, T, K, dil, slope, alpha, beta, stream);
-    case 256: return launch<256>(x, y, w1, b1, w2, b2, B, T, K, dil, slope, alpha, beta, stream);
+    case 32: return launch<32>(x, y, v1, b1, v2, b2, B, T, K, dil, slope, alpha, beta, stream);
+    case 64: return launch<64>(x, y, v1, b1, v2, b2, B, T, K, dil, slope, alpha, beta, stream);
+    case 128: return launch<128>(x, y, v1, b1, v2, b2, B, T, K, dil, slope, alpha, beta, stream);
+    case 256: return launch<256>(x, y, v1, b1, v2, b2, B, T, K, dil, slope, alpha, beta, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -4,13 +4,22 @@ tiles cut by the sequence end). Skips where there is no CUDA device:
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q      # on the card
 
-Tolerances: float32 kernels against float32 plain versions (TF32 off), so
-only the summation order differs. K3: 1e-4 relative and absolute. K1/K2
-sum up to C*K = 2,816 products per conv, six convs deep, so their rounding
-grows with the output: each is held against a float64 run of the plain
-version, and its largest error there may be at most 4x the float32 plain
-version's own. K4: 1e-3 relative and 2e-3 absolute, the JAX test's bar for
-its mel kernel."""
+Tolerances. K3: 1e-4 relative and absolute, a float32 kernel against its
+float32 plain version (TF32 off), so only the summation order differs. K4:
+1e-3 relative and 2e-3 absolute, the JAX test's bar for its mel kernel.
+K1/K2 compute as the TPU kernel does, with bf16 conv operands and float32
+sums, so each is held twice:
+- against the plain version with `bf16_operands=True` run in float64 (the
+  same bf16 operands, exact sums): rel_l2 <= max(1e-4, 2 x that of the
+  same plain version run in float32 by cuDNN), on the output and on its
+  update (output - x), which the residual does not dilute. Two float32
+  sums of one chain round some bf16 operands apart, and each such flip
+  moves the next conv: at k = 11, C = 256 cuDNN's float32 run is itself
+  1.7e-4 off the float64 one, so a fixed 1e-4 holds only the small chains;
+- against the float32 plain version at the JAX test's bar for the Pallas
+  kernel against XLA (tests/unit/test_pallas_resblock.py: atol 2e-2, rtol
+  1e-2, corr > 0.9999). Their weights are N(0, 0.01), the decoder's init,
+  on which that bar is set."""
 
 import pytest
 import torch
@@ -60,37 +69,45 @@ def test_rel_attention(dev, B, H, T, D, w, lens):
     torch.testing.assert_close(got * valid, ref * valid, atol=1e-4, rtol=1e-4)
 
 
+def _rel_l2(a, b) -> float:
+    return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+
 def _f64(a):
     if isinstance(a, tuple):
         return tuple(_f64(t) for t in a)
     return a.double() if isinstance(a, torch.Tensor) else a
 
 
-def _assert_conv_close(got, plain, *args):
-    ref = plain(*args)
-    exact = plain(*(_f64(a) for a in args))
-    kernel_err = float((got.double() - exact).abs().max())
-    plain_err = float((ref.double() - exact).abs().max())
-    assert kernel_err <= 4 * plain_err + 1e-7, (
-        f"kernel {kernel_err:.3g} off float64, plain float32 {plain_err:.3g}, "
-        f"max|ref| {float(exact.abs().max()):.4g}")
+def _assert_bf16_kernel(got, plain, x, *args):
+    exact = plain(x.double(), *_f64(args), bf16_operands=True)
+    emu = plain(x, *args, bf16_operands=True).double()
+    xd, g = x.double(), got.double()
+    for what, k, e in (("output", _rel_l2(g, exact), _rel_l2(emu, exact)),
+                       ("update", _rel_l2(g - xd, exact - xd), _rel_l2(emu - xd, exact - xd))):
+        assert k <= max(1e-4, 2 * e), (
+            f"{what}: kernel {k:.3g} off the float64 bf16 emulation, cuDNN float32 {e:.3g}")
+    ref = plain(x, *args)
+    torch.testing.assert_close(got, ref, atol=2e-2, rtol=1e-2)
+    corr = float(torch.corrcoef(torch.stack([got.flatten(), ref.flatten()]).double())[0, 1])
+    assert corr > 0.9999, f"corr {corr} against the float32 plain version"
 
 
 def _weights(dev, g, C, K):
-    return (0.05 * torch.randn((3, K, C, C), device=dev, generator=g),
+    return (0.01 * torch.randn((3, K, C, C), device=dev, generator=g),
             0.1 * torch.randn((3, C), device=dev, generator=g),
-            0.05 * torch.randn((3, K, C, C), device=dev, generator=g),
+            0.01 * torch.randn((3, K, C, C), device=dev, generator=g),
             0.1 * torch.randn((3, C), device=dev, generator=g))
 
 
 @pytest.mark.parametrize("C", KR.CHANNELS)
-@pytest.mark.parametrize("K,T", [(3, 97), (11, 1001)])
+@pytest.mark.parametrize("K,T", [(3, 97), (11, 1001), (11, 40)])
 def test_resblock_chain(dev, C, K, T):
     g = _gen(dev, C * K)
     x = torch.randn((2, T, C), device=dev, generator=g)
     ws = _weights(dev, g, C, K)
     got = KR.resblock_chain(x, *ws, K, (1, 3, 5))
-    _assert_conv_close(got, KR.resblock_chain_reference, x, *ws, K, (1, 3, 5))
+    _assert_bf16_kernel(got, KR.resblock_chain_reference, x, *ws, K, (1, 3, 5))
 
 
 @pytest.mark.parametrize("C,T", [(32, 3000), (128, 77)])
@@ -100,7 +117,7 @@ def test_resblock_group(dev, C, T):
     weights = sum((_weights(dev, g, C, K) for K in (3, 7, 11)), ())
     dil = ((1, 3, 5),) * 3
     got = KR.resblock_group(x, weights, (3, 7, 11), dil)
-    _assert_conv_close(got, KR.resblock_group_reference, x, weights, (3, 7, 11), dil)
+    _assert_bf16_kernel(got, KR.resblock_group_reference, x, weights, (3, 7, 11), dil)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):

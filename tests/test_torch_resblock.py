@@ -1,5 +1,7 @@
 """K1/K2 plain versions against the reference's XLA chains (float32) and
-the TPU kernels in interpret mode (bf16 taps)."""
+the TPU kernels in interpret mode (bf16 taps); the bf16 emulation
+(`bf16_operands=True`, the CUDA kernel's arithmetic) against the TPU
+kernels; the kernel's weight layout."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -8,7 +10,9 @@ import torch
 
 from rvc_tpu.ops.pallas import resblock as R
 from rvc_tpu_torch.ops.kernels import LAUNCHES
-from rvc_tpu_torch.ops.kernels.resblock import resblock_chain, resblock_group
+from rvc_tpu_torch.ops.kernels.resblock import (kernel_weights, resblock_chain,
+                                                resblock_chain_reference, resblock_group,
+                                                resblock_group_reference)
 
 DIL = (1, 3, 5)
 
@@ -82,3 +86,39 @@ def test_group_matches_pallas_interpret():
     got = resblock_group(torch.from_numpy(x), tuple(map(torch.from_numpy, weights)),
                          (3, 7, 11), (DIL,) * 3).numpy()
     _close_to_bf16_kernel(got, ref)
+
+
+@pytest.mark.parametrize("K,C,T", [(11, 32, 700), (3, 256, 200), (7, 64, 500), ("group", 32, 450)])
+def test_bf16_emulation_matches_pallas_interpret(K, C, T):
+    """Both sides round the conv operands to bf16 and sum in float32, so
+    only the order of the sums differs: rel_l2 <= 1e-4 and atol 1e-3."""
+    rng = np.random.default_rng(23 + C + T)
+    x = _x(rng, T, C)
+    if K == "group":
+        weights = sum((_weights(rng, C, k) for k in (3, 7, 11)), ())
+        ref = np.asarray(R.fused_resblock_group(
+            jnp.asarray(x), tuple(map(jnp.asarray, weights)), (3, 7, 11), (DIL,) * 3,
+            interpret=True))
+        got = resblock_group_reference(torch.from_numpy(x),
+                                       tuple(map(torch.from_numpy, weights)),
+                                       (3, 7, 11), (DIL,) * 3, bf16_operands=True).numpy()
+    else:
+        ws = _weights(rng, C, K)
+        ref = np.asarray(R.fused_resblock(jnp.asarray(x), *map(jnp.asarray, ws), K, DIL,
+                                          interpret=True))
+        got = resblock_chain_reference(torch.from_numpy(x), *map(torch.from_numpy, ws), K,
+                                       DIL, bf16_operands=True).numpy()
+    rel_l2 = np.linalg.norm(got - ref) / np.linalg.norm(ref)
+    assert rel_l2 <= 1e-4, rel_l2
+    np.testing.assert_allclose(got, ref, atol=1e-3, rtol=0)
+
+
+def test_kernel_weights_are_bf16_taps_out_major():
+    """(S, K, Cin, Cout) float32 -> (S, Cout, K, Cin) bf16: reading it back
+    in the reference's layout gives bf16(w)."""
+    w = torch.from_numpy(np.random.default_rng(5).standard_normal((3, 7, 32, 64))
+                         .astype(np.float32))
+    kw = kernel_weights(w)
+    assert kw.dtype == torch.bfloat16 and kw.is_contiguous()
+    assert kw.shape == (3, 64, 7, 32)
+    assert torch.equal(kw.permute(0, 2, 3, 1), w.to(torch.bfloat16))
