@@ -14,16 +14,26 @@ Phases, one JSON line each (a `kernel` line per kernel call):
   kernel    every kernel-wrapper call of one more conversion of the clip,
             recorded with its inputs (`ops.kernels.record_calls`) and
             replayed: the kernel against its plain PyTorch version on the
-            same inputs (TF32 off), max_abs / rel_l2 / tolerance, median ms
-            over CUDA events after warmup for both, and the bound at the
-            kernel's own peak. K1/K2 (bf16 operands, float32 sums, as the
+            same inputs (TF32 off), max_abs / rel_l2 / tolerance, ms for
+            both (CUDA events around one call, the host's launch work
+            included; the median of 5 runs after warmup), `ms_queued` and
+            `plain_ms_queued` for both (10 calls queued back to back, over
+            10, as in a conversion), and the bound at the kernel's own
+            peak. K1/K2 (bf16 operands, float32 sums, as the
             TPU kernel) are also held to the plain version's bf16 emulation
             (`bf16_operands=True`) run in float64, beside the same emulation
             run in float32 by cuDNN (`emu_rel_l2`, `cudnn_emu_rel_l2`), and
             carry `cudnn_bf16_ms`: the plain chain on
             bf16 copies of the inputs (cuDNN bf16 convs, bf16 residual), a
-            yardstick, not the same function. The replay must launch each
-            kernel as often as the timed run did.
+            yardstick, not the same function. K3 and K4 carry their launch
+            `grid` (blocks, blocks an SM, waves on the card's SMs); K3 also
+            `sdpa_ms`: PyTorch's scaled_dot_product_attention in float32 on
+            the same q, k, v with the band logits and the length folded into
+            a dense additive mask built outside the timed region, a
+            yardstick without the band weights' rel-v term (and
+            `sdpa_ms_queued`); both carry `device_ms`, each CUDA kernel's
+            device time per call from torch.profiler. The replay must
+            launch each kernel as often as the timed run did.
   parity    a 2 s clip on the card and through the port's CPU path (the
             plain versions), same weights, source noise off: waveform corr
 Then the `kernels` summary line (per kernel: the sums over its calls),
@@ -39,6 +49,7 @@ import inspect
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -46,6 +57,7 @@ import time
 CLIP_S = 13.5
 PARITY_S = 2.0
 SEED = 0
+KERNEL_CALLS = 10                         # calls queued per timed run in the kernel phase
 PEAK_F32 = (67e12, "float32")            # H100 SXM, outside the tensor cores
 PEAK_BF16 = (989e12, "bf16 dense")        # H100 SXM tensor cores
 PEAK_HBM_BYTES = 3.35e12                  # H100 SXM HBM3
@@ -92,8 +104,10 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, warmup: int = 2, reps: int = 5) -> float:
-    """Median milliseconds of fn() over CUDA events, after warmup."""
+def cuda_ms(fn, warmup: int = 2, reps: int = 5, calls: int = 1) -> float:
+    """Median over reps of the CUDA-event milliseconds of `calls` fn()s
+    queued back to back, over calls; after warmup. With calls > 1 the
+    host's launch work overlaps the device's, as in a conversion."""
     import torch
 
     for _ in range(warmup):
@@ -102,10 +116,11 @@ def cuda_ms(fn, warmup: int = 2, reps: int = 5) -> float:
     for _ in range(reps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / calls)
     times.sort()
     return times[len(times) // 2]
 
@@ -120,6 +135,28 @@ def test_clip(seconds: float, seed: int):
     phase = 2 * np.pi * np.cumsum(f) / 16000
     y = 0.4 * np.sin(phase) + 0.1 * np.sin(2 * phase) + 0.02 * rng.standard_normal(len(t))
     return (y * (0.6 + 0.4 * np.sin(2 * np.pi * 0.5 * t) ** 2)).astype(np.float32)
+
+
+def device_kernel_ms(fn, calls: int = KERNEL_CALLS) -> dict:
+    """Device milliseconds per call of each CUDA kernel that fn() launches,
+    from torch.profiler over `calls` queued calls ({} if it saw none)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+        if us > 0:
+            key = e.key.replace("(anonymous namespace)::", "")
+            name = re.match(r"(?:void\s+)?(?:[\w:]*::)?(\w+)", key).group(1)
+            out[name] = out.get(name, 0.0) + us / 1e3 / calls
+    return out
 
 
 def rel_l2(got, ref) -> float:
@@ -218,6 +255,35 @@ def bound_text(peak: tuple) -> str:
             "H100 SXM peaks at 700 W")
 
 
+def sdpa_mask(a: dict):
+    """K3's band logits and key mask as a dense (B, H, T, T) additive mask
+    for scaled_dot_product_attention (float32)."""
+    import torch
+
+    q, w = a["q"], a["window_size"]
+    B, H, T, D = q.shape
+    band = (q / D ** 0.5) @ a["emb_rel_k"].transpose(-1, -2)           # (B, H, T, 2w+1)
+    t = torch.arange(T, device=q.device)
+    rel = t[None, :] - t[:, None] + w                                  # key - row + w
+    in_band = (rel >= 0) & (rel <= 2 * w)
+    mask = band.gather(-1, rel.clamp(0, 2 * w).expand(B, H, T, T)) * in_band
+    lens = a["key_lens"].to(q.device)
+    return mask.masked_fill(t[None, None, None, :] >= lens[:, None, None, None], -1e4)
+
+
+def kernel_grid(name: str, a: dict) -> dict:
+    """The launch grid of K3's split kernel or K4's DFT kernel for this call."""
+    if name == "rel_attention":
+        from rvc_tpu_torch.ops.kernels.attention import launch_plan
+
+        B, H, T, D = a["q"].shape
+        return launch_plan(B * H, T, D, a["window_size"])
+    from rvc_tpu_torch.ops.kernels.melspec import launch_plan
+
+    B, T = a["audio"].shape
+    return launch_plan(B, T, a["n_fft"], a["hop"], a["n_mels"])
+
+
 def phase_kernels(calls: list, launches: dict) -> list:
     """Replay each recorded wrapper call: check the kernel against its plain
     version, then time both. Returns the per-kernel summary."""
@@ -263,24 +329,49 @@ def phase_kernels(calls: list, launches: dict) -> list:
             flop, nbytes = work(name, a)
             ms = cuda_ms(lambda: fn(*args, **kwargs))
             plain_ms = cuda_ms(lambda: plain(*args, **kwargs))
-            extra = {}
+            extra = {"ms_queued": cuda_ms(lambda: fn(*args, **kwargs), calls=KERNEL_CALLS),
+                     "plain_ms_queued": cuda_ms(lambda: plain(*args, **kwargs),
+                                                calls=KERNEL_CALLS)}
             if "emu_rel_l2" in spec:
                 bf_args, bf_kwargs = cast(args, torch.bfloat16), cast(kwargs, torch.bfloat16)
                 extra["cudnn_bf16_ms"] = cuda_ms(lambda: plain(*bf_args, **bf_kwargs))
                 del bf_args, bf_kwargs
+            else:
+                extra["grid"] = kernel_grid(name, a)
+                extra["device_ms"] = device_kernel_ms(lambda: fn(*args, **kwargs))
+            if name == "rel_attention":
+                mask = sdpa_mask(a)
+
+                def sdpa():
+                    torch.nn.functional.scaled_dot_product_attention(a["q"], a["k"], a["v"],
+                                                                     attn_mask=mask)
+                extra["sdpa_ms"] = cuda_ms(sdpa)
+                extra["sdpa_ms_queued"] = cuda_ms(sdpa, calls=KERNEL_CALLS)
+                del mask
             bound_ms, bound_by = bound(flop, nbytes, spec["peak"])
             emit({"phase": "kernel", "name": spec["name"], "inputs": desc, **cmp,
                   "ms": ms, "plain_ms": plain_ms, **extra, "bound_ms": bound_ms,
                   "bound_by": bound_by, "bound": bound_text(spec["peak"])})
             r = results.setdefault(name, dict(flop=0, bytes=0, calls=0, max_abs_err=0.0,
-                                              ms=0.0, plain_ms=0.0))
+                                              ms=0.0, plain_ms=0.0, ms_queued=0.0,
+                                              plain_ms_queued=0.0))
             r["flop"] += flop
             r["bytes"] += nbytes
             r["calls"] += 1
             r["max_abs_err"] = max(r["max_abs_err"], cmp["max_abs"])
             r["ms"] += ms
             r["plain_ms"] += plain_ms
-            if extra:
+            r["ms_queued"] += extra["ms_queued"]
+            r["plain_ms_queued"] += extra["plain_ms_queued"]
+            if "grid" in extra:
+                r["grid"] = extra["grid"]
+                dev = r.setdefault("device_ms", {})
+                for k, t in extra["device_ms"].items():
+                    dev[k] = dev.get(k, 0.0) + t
+            if "sdpa_ms" in extra:
+                for k in ("sdpa_ms", "sdpa_ms_queued"):
+                    r[k] = r.get(k, 0.0) + extra[k]
+            if "cudnn_bf16_ms" in extra:
                 r["cudnn_bf16_ms"] = r.get("cudnn_bf16_ms", 0.0) + extra["cudnn_bf16_ms"]
                 for k in ("emu_rel_l2", "emu_update_rel_l2", "cudnn_emu_rel_l2"):
                     r[k] = max(r.get(k, 0.0), cmp[k])
@@ -293,9 +384,13 @@ def phase_kernels(calls: list, launches: dict) -> list:
         summary.append(dict(
             name=spec["name"], route="cuda", source=spec["source"], entry=spec["entry"],
             replaces=spec["replaces"], launches=launches[name], calls=r["calls"],
-            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            max_abs_err=r["max_abs_err"], ms=r["ms"], ms_queued=r["ms_queued"],
+            device_ms=r.get("device_ms"), plain_ms=r["plain_ms"],
+            plain_ms_queued=r["plain_ms_queued"],
             bound_ms=bound_ms, bound_by=bound_by, bound=bound_text(spec["peak"]),
-            library_ms=None, cudnn_bf16_ms=r.get("cudnn_bf16_ms"),
+            library_ms=None, cudnn_bf16_ms=r.get("cudnn_bf16_ms"), sdpa_ms=r.get("sdpa_ms"),
+            sdpa_ms_queued=r.get("sdpa_ms_queued"),
+            grid=r.get("grid"),
             emu_rel_l2=r.get("emu_rel_l2"), emu_update_rel_l2=r.get("emu_update_rel_l2"),
             cudnn_emu_rel_l2=r.get("cudnn_emu_rel_l2")))
     return summary

@@ -45,7 +45,7 @@ def _gen(dev, seed):
     return torch.Generator(device=dev).manual_seed(seed)
 
 
-@pytest.mark.parametrize("B,T", [(1, 16000), (2, 12345)])
+@pytest.mark.parametrize("B,T", [(1, 16000), (2, 12345), (1, 261120)])
 def test_log_mel(dev, B, T):
     audio = 0.3 * torch.randn((B, T), device=dev, generator=_gen(dev, T))
     before = LAUNCHES["log_mel"]
@@ -57,7 +57,9 @@ def test_log_mel(dev, B, T):
 
 @pytest.mark.parametrize("B,H,T,D,w,lens", [
     (1, 2, 200, 96, 10, [200]), (2, 2, 130, 64, 10, [130, 77]), (1, 1, 50, 32, 4, [50]),
-    (1, 2, 1000, 96, 10, [1])])
+    (1, 2, 1000, 96, 10, [1]),
+    (1, 2, 1632, 96, 10, [1550]),        # the main path's shape
+    (2, 2, 1000, 96, 10, [1000, 677])])  # T cuts a query tile, 677 a key tile; 4 key splits
 def test_rel_attention(dev, B, H, T, D, w, lens):
     g = _gen(dev, T)
     q, k, v = (torch.randn((B, H, T, D), device=dev, generator=g) for _ in range(3))
@@ -67,6 +69,28 @@ def test_rel_attention(dev, B, H, T, D, w, lens):
     ref = KA.rel_attention(*(x.cpu() for x in (q, k, v, ek, ev)), w, key_lens.cpu()).to(dev)
     valid = (torch.arange(T, device=dev)[None, :] < key_lens[:, None])[:, None, :, None]
     torch.testing.assert_close(got * valid, ref * valid, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("channels_first", [False, True])
+def test_rel_attention_head_views_match_contiguous(dev, channels_first):
+    """Head views of (B, T, H * D) rows, and of a (B, H * D, T) conv output
+    seen as (B, T, C) (the TextEncoder's, stride T over D), give what their
+    contiguous copies give, bit for bit; the output lies over (B, T, H, D)."""
+    B, H, T, D, w = 2, 2, 333, 96, 10
+    g = _gen(dev, 7)
+
+    def head_view():
+        x = torch.randn((B, H * D, T) if channels_first else (B, T, H * D), device=dev,
+                        generator=g)
+        return (x.transpose(1, 2) if channels_first else x).reshape(B, T, H, D).transpose(1, 2)
+
+    q, k, v = (head_view() for _ in range(3))
+    ek, ev = (0.3 * torch.randn((1, 2 * w + 1, D), device=dev, generator=g) for _ in range(2))
+    key_lens = torch.tensor([333, 250], device=dev, dtype=torch.int32)
+    got = KA.rel_attention(q, k, v, ek, ev, w, key_lens)
+    ref = KA.rel_attention(q.contiguous(), k.contiguous(), v.contiguous(), ek, ev, w, key_lens)
+    assert not q.is_contiguous() and got.transpose(1, 2).is_contiguous()
+    torch.testing.assert_close(got, ref, atol=0, rtol=0)
 
 
 def _rel_l2(a, b) -> float:
