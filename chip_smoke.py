@@ -31,16 +31,30 @@ Phases, one JSON line each (a `kernel` line per kernel call):
             the same q, k, v with the band logits and the length folded into
             a dense additive mask built outside the timed region, a
             yardstick without the band weights' rel-v term (and
-            `sdpa_ms_queued`); both carry `device_ms`, each CUDA kernel's
-            device time per call from torch.profiler. The replay must
-            launch each kernel as often as the timed run did.
+            `sdpa_ms_queued`); every line carries `device_ms`, each CUDA
+            kernel's device time per call from torch.profiler. The replay
+            must launch each kernel as often as the timed run did.
   parity    a 2 s clip on the card and through the port's CPU path (the
             plain versions), same weights, source noise off: waveform corr
-Then the `kernels` summary line (per kernel: the sums over its calls),
-the card line, and last {"ok": true, "device": {...}}. Any failed check
-raises: the exit code is non-zero and the last line is not printed.
-Without a CUDA device, or run outside the repository, it fails before
-printing any result.
+  retrieval the same 48 kHz model written as an upstream `.pth` (fp16
+            weights, the 18-element config list) and an IVFFlat index built
+            on the card from the port's HuBERT features of seeded chirps
+            (60,000 x 768, nlist 1538, nprobe 1), written as a FAISS file
+            and read back; `RVC(model_path=..., index_path=...)` converts the
+            13.5 s clip at index_rate 0.75: index build / write / read
+            seconds, wall ms after a warm call, the launches (K1-K4 > 0), the
+            search and blend ms of the clip's frames (CUDA events) beside the
+            search's bound, and GPU-vs-CPU waveform corr on a 2 s clip
+  f0less    an f0-less 40 kHz model at full width (plain HiFi-GAN decoder,
+            stages C = 256, 128, 64, 32) from its `.pth`, with the same
+            index, through the staged path: wall ms, the launches (K1-K3 > 0,
+            K4 = 0), every kernel call of one conversion held against its
+            plain version at the bars above (not timed), GPU-vs-CPU corr
+Then the `kernels` summary line (per kernel: the sums over its calls; the
+launches of each path's run beside the main path's), the card line, and
+last {"ok": true, "device": {...}}. Any failed check raises: the exit code
+is non-zero and the last line is not printed. Without a CUDA device, or
+run outside the repository, it fails before printing any result.
 """
 
 from __future__ import annotations
@@ -52,12 +66,15 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 CLIP_S = 13.5
 PARITY_S = 2.0
 SEED = 0
 KERNEL_CALLS = 10                         # calls queued per timed run in the kernel phase
+INDEX_N = 60_000     # index vectors: ~20 min of training audio at HuBERT's 50 frames/s
+INDEX_RATE = 0.75    # the reference's default
 PEAK_F32 = (67e12, "float32")            # H100 SXM, outside the tensor cores
 PEAK_BF16 = (989e12, "bf16 dense")        # H100 SXM tensor cores
 PEAK_HBM_BYTES = 3.35e12                  # H100 SXM HBM3
@@ -284,11 +301,42 @@ def kernel_grid(name: str, a: dict) -> dict:
     return launch_plan(B, T, a["n_fft"], a["hop"], a["n_mels"])
 
 
+def check_calls(calls: list) -> list:
+    """Hold each recorded wrapper call's kernel against its plain version on
+    the same inputs, at the kernel's bars (raises on a miss). Returns
+    (fn, args, kwargs, plain, bound arguments, description, comparison)."""
+    import importlib
+
+    import torch
+
+    checked = []
+    for fn, args, kwargs in calls:
+        name = fn.__name__
+        spec = KERNELS[name]
+        plain = getattr(importlib.import_module(f"rvc_tpu_torch.ops.kernels.{spec['module']}"),
+                        name + "_reference")
+        bound_args = inspect.signature(fn).bind(*args, **kwargs)
+        bound_args.apply_defaults()
+        a = bound_args.arguments
+        got, ref = fn(*args, **kwargs), plain(*args, **kwargs)
+        if name == "rel_attention":  # rows past the length differ by design
+            T = a["q"].shape[2]
+            valid = torch.arange(T, device=got.device)[None, :] < a["key_lens"].to(got.device)[:, None]
+            got, ref = got * valid[:, None, :, None], ref * valid[:, None, :, None]
+        desc = describe(a)
+        what = f"{name} {desc}"
+        cmp = compare(got, ref, spec["atol"], spec["rtol"], what, spec.get("min_corr"))
+        if "emu_rel_l2" in spec:
+            cmp.update(check_emulation(got, plain, args, kwargs, a["x"],
+                                       spec["emu_rel_l2"], what))
+        checked.append((fn, args, kwargs, plain, a, desc, cmp))
+        del got, ref
+    return checked
+
+
 def phase_kernels(calls: list, launches: dict) -> list:
     """Replay each recorded wrapper call: check the kernel against its plain
     version, then time both. Returns the per-kernel summary."""
-    import importlib
-
     import torch
 
     from rvc_tpu_torch.ops.kernels import LAUNCHES, reset_launches
@@ -296,28 +344,7 @@ def phase_kernels(calls: list, launches: dict) -> list:
     results = {}
     with torch.inference_mode():
         reset_launches()
-        checked = []
-        for fn, args, kwargs in calls:
-            name = fn.__name__
-            spec = KERNELS[name]
-            plain = getattr(importlib.import_module(f"rvc_tpu_torch.ops.kernels.{spec['module']}"),
-                            name + "_reference")
-            bound_args = inspect.signature(fn).bind(*args, **kwargs)
-            bound_args.apply_defaults()
-            a = bound_args.arguments
-            got, ref = fn(*args, **kwargs), plain(*args, **kwargs)
-            if name == "rel_attention":  # rows past the length differ by design
-                T = a["q"].shape[2]
-                valid = torch.arange(T, device=got.device)[None, :] < a["key_lens"].to(got.device)[:, None]
-                got, ref = got * valid[:, None, :, None], ref * valid[:, None, :, None]
-            desc = describe(a)
-            what = f"{name} {desc}"
-            cmp = compare(got, ref, spec["atol"], spec["rtol"], what, spec.get("min_corr"))
-            if "emu_rel_l2" in spec:
-                cmp.update(check_emulation(got, plain, args, kwargs, a["x"],
-                                           spec["emu_rel_l2"], what))
-            checked.append((fn, args, kwargs, plain, a, desc, cmp))
-            del got, ref
+        checked = check_calls(calls)
         torch.cuda.synchronize()
         replayed = dict(LAUNCHES)
         if replayed != launches:
@@ -338,7 +365,7 @@ def phase_kernels(calls: list, launches: dict) -> list:
                 del bf_args, bf_kwargs
             else:
                 extra["grid"] = kernel_grid(name, a)
-                extra["device_ms"] = device_kernel_ms(lambda: fn(*args, **kwargs))
+            extra["device_ms"] = device_kernel_ms(lambda: fn(*args, **kwargs))
             if name == "rel_attention":
                 mask = sdpa_mask(a)
 
@@ -365,9 +392,9 @@ def phase_kernels(calls: list, launches: dict) -> list:
             r["plain_ms_queued"] += extra["plain_ms_queued"]
             if "grid" in extra:
                 r["grid"] = extra["grid"]
-                dev = r.setdefault("device_ms", {})
-                for k, t in extra["device_ms"].items():
-                    dev[k] = dev.get(k, 0.0) + t
+            dev = r.setdefault("device_ms", {})
+            for k, t in extra["device_ms"].items():
+                dev[k] = dev.get(k, 0.0) + t
             if "sdpa_ms" in extra:
                 for k in ("sdpa_ms", "sdpa_ms_queued"):
                     r[k] = r.get(k, 0.0) + extra[k]
@@ -447,6 +474,206 @@ def phase_stages(rvc) -> None:
     emit({"phase": "stages", "clip_s": CLIP_S, "host_prep_ms": host_ms, "device_ms": st})
 
 
+def timed_conversion(rvc, clip, **kwargs) -> tuple:
+    """(output, wall ms, launches) of one conversion after a warm call, the
+    launch counts set to 0 just before it and read just after."""
+    import numpy as np
+    import torch
+
+    from rvc_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+
+    rvc.infer(clip, **kwargs)            # warm: cuDNN plans, allocator, index upload
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = rvc.infer(clip, **kwargs)
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    launches = dict(LAUNCHES)
+    want = int(CLIP_S * rvc.cfg.data.sample_rate)
+    if len(out) != want or not np.isfinite(out).all():
+        raise AssertionError(f"output: {len(out)} samples (want {want}), "
+                             f"finite={bool(np.isfinite(out).all())}")
+    return out, wall_ms, launches
+
+
+def gpu_cpu_corr(rvc, model_path: str, index_path: str) -> dict:
+    """A 2 s clip through `rvc` on the card and through the same files on
+    the port's CPU path, source noise off: waveform corr > 0.99."""
+    import numpy as np
+
+    from rvc_tpu_torch.api import RVC
+
+    clip = test_clip(PARITY_S, SEED + 1)
+    rvc.pipeline.source_noise = False
+    gpu = rvc.infer(clip)
+    t0 = time.perf_counter()
+    cpu = RVC(model_path=model_path, index_path=index_path, seed=SEED, device="cpu",
+              source_noise=False).infer(clip)
+    if len(gpu) != len(cpu):
+        raise AssertionError(f"GPU gave {len(gpu)} samples, CPU {len(cpu)}")
+    corr = float(np.corrcoef(gpu, cpu)[0, 1])
+    if not corr > 0.99:
+        raise AssertionError(f"GPU vs CPU waveform corr {corr}")
+    return {"clip_s": PARITY_S, "waveform_corr": corr,
+            "max_abs": float(np.abs(gpu - cpu).max()), "cpu_seconds": time.perf_counter() - t0}
+
+
+def index_features(hubert, device, n: int):
+    """(n, 768) HuBERT features, as the pipeline takes them, of seeded
+    chirps of 10-40 s (each spans 110-330 Hz over its length), on the card."""
+    import numpy as np
+    import torch
+
+    feats, total, seed = [], 0, 100
+    with torch.inference_mode():
+        while total < n:
+            audio = torch.from_numpy(test_clip(10.0 + 5.0 * (seed % 7), seed))[None].to(device)
+            feats.append(hubert(audio, output_hidden_states=True)[0].cpu().numpy())
+            total += len(feats[-1])
+            seed += 1
+    return np.concatenate(feats)[:n]
+
+
+def phase_retrieval(rvc, work: str) -> tuple:
+    """The 48 kHz model from an upstream .pth with a FAISS index of INDEX_N
+    vectors built on the card, at index_rate 0.75. Returns (the index's
+    path, the launches of the timed conversion)."""
+    import numpy as np
+    import torch
+
+    from rvc_tpu_torch.api import RVC
+    from rvc_tpu_torch.pipelines.offline import retrieve
+    from rvc_tpu_torch.retrieval import build_index, read_faiss_index, write_faiss_index
+    from rvc_tpu_torch.retrieval.ivf import default_nlist, index_blend
+    from rvc_tpu_torch.utils import audio as audio_utils
+    from rvc_tpu_torch.utils.weights import export_pth
+
+    model_path = export_pth(rvc.pipeline.synthesizer.state_dict(), rvc.cfg,
+                            os.path.join(work, "model48k.pth"))
+    t0 = time.perf_counter()
+    feats = index_features(rvc.pipeline.hubert, rvc.device, INDEX_N)
+    feats_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    index = build_index(feats, nprobe=1, seed=SEED, device=rvc.device)
+    build_s = time.perf_counter() - t0
+    index_path = os.path.join(work, "model.index")
+    t0 = time.perf_counter()
+    write_faiss_index(index, index_path)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    index = read_faiss_index(index_path)
+    read_s = time.perf_counter() - t0
+    if (index.ntotal, index.d, index.nlist) != (INDEX_N, 768, default_nlist(INDEX_N)):
+        raise AssertionError(f"index read back as {index.ntotal} x {index.d}, "
+                             f"{index.nlist} lists")
+    sizes = np.bincount(index.list_ids, minlength=index.nlist)
+
+    t0 = time.perf_counter()
+    rvc_r = RVC(model_path=model_path, index_path=index_path, seed=SEED, device="cuda")
+    load_s = time.perf_counter() - t0
+    clip = test_clip(CLIP_S, SEED)
+    out, wall_ms, launches = timed_conversion(rvc_r, clip, index_rate=INDEX_RATE)
+    missing = [k for k, n in launches.items() if n <= 0]
+    if missing:
+        raise AssertionError(f"the retrieval path never launched {missing}")
+    plain = rvc_r.infer(clip, index_rate=0.0)
+
+    # the retrieval stage alone, on the clip's one chunk of HuBERT frames
+    p = rvc_r.pipeline
+    chunk = np.pad(audio_utils.highpass_filter(clip, 16000, 48.0, 5), (p.t_pad, p.t_pad),
+                   mode="reflect")
+    with torch.inference_mode():
+        feats = p.hubert(p._upload(chunk), output_hidden_states=True)
+        q = feats[0]
+        vectors, _, _, centroids = rvc_r.index.tensors(q.device)
+        d, i = rvc_r.index.search_device(q, 8)
+        search_ms = cuda_ms(lambda: rvc_r.index.search_device(q, 8))
+        blend_ms = cuda_ms(lambda: index_blend(q, vectors[i], d, INDEX_RATE))
+        retrieve_ms = cuda_ms(lambda: retrieve(feats, rvc_r.index, INDEX_RATE))
+        blended = retrieve(feats, rvc_r.index, INDEX_RATE)
+        moved = rel_l2(blended, feats)
+        # the same search and blend on the host: a near-tie may pick another
+        # neighbour, so hold the blended features, not the ids
+        _, i_cpu = rvc_r.index.search_device(q.cpu(), 8)
+        blended_cpu = retrieve(feats.cpu(), rvc_r.index, INDEX_RATE)
+        host = {"ids_equal": float((i.cpu() == i_cpu).float().mean()),
+                "rel_l2": rel_l2(blended.cpu(), blended_cpu),
+                "corr": float(torch.corrcoef(torch.stack([blended.cpu().flatten(),
+                                                          blended_cpu.flatten()]))[0, 1])}
+        if not host["corr"] > 0.999:
+            raise AssertionError(f"retrieval on the card against the host: {host}")
+    Q, D = q.shape
+    N, K = vectors.shape[0], centroids.shape[0]
+    flop = 2 * Q * (N + K) * D
+    # read the queries, vectors, |v|^2, list ids and centroids once; write (Q, 8) d and ids
+    nbytes = 4 * (Q * D + N * D + N + K * D + Q * 8) + 8 * (N + Q * 8)
+    bound_ms, bound_by = bound(flop, nbytes, PEAK_F32)
+    parity = gpu_cpu_corr(rvc_r, model_path, index_path)
+    emit({"phase": "retrieval", "index": {"vectors": INDEX_N, "d": index.d, "nlist": index.nlist,
+                                          "nprobe": index.nprobe, "list_sizes_min_median_max":
+                                          [int(sizes.min()), float(np.median(sizes)),
+                                           int(sizes.max())],
+                                          "file_mb": os.path.getsize(index_path) / 1e6},
+          "features_s": feats_s, "build_s": build_s, "write_s": write_s, "read_s": read_s,
+          "model_load_s": load_s, "clip_s": CLIP_S, "index_rate": INDEX_RATE,
+          "wall_ms": wall_ms, "realtime_x": CLIP_S * 1e3 / wall_ms, "launches": launches,
+          "queries": Q, "search_ms": search_ms, "blend_ms": blend_ms,
+          "search_and_blend_ms": retrieve_ms, "search_gflop": flop / 1e9,
+          "search_bound_ms": bound_ms, "search_bound_by": bound_by,
+          "median_nearest_d": float(d[:, 0].median()), "features_moved_rel_l2": moved,
+          "card_vs_host": host,
+          "corr_with_index_rate_0": float(np.corrcoef(out, plain)[0, 1]),
+          "parity": parity})
+    return index_path, launches
+
+
+def phase_f0less(index_path: str, work: str) -> dict:
+    """An f0-less 40 kHz model at full width from its .pth, with the same
+    index, through the staged path; every kernel call of one conversion
+    held against its plain version. Returns the timed run's launches."""
+    import torch
+
+    from rvc_tpu_torch.api import RVC
+    from rvc_tpu_torch.configs import get_config
+    from rvc_tpu_torch.models.synthesizer import build_synthesizer
+    from rvc_tpu_torch.ops.kernels import record_calls
+    from rvc_tpu_torch.utils.weights import export_pth
+
+    cfg = get_config(40000, model_use_f0=False)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(SEED)
+        synth = build_synthesizer(cfg)
+    model_path = export_pth(synth.state_dict(), cfg, os.path.join(work, "f0less40k.pth"),
+                            pitch_guidance=False)
+    rvc = RVC(model_path=model_path, index_path=index_path, seed=SEED, device="cuda")
+    if rvc.cfg.model.use_f0 or rvc.cfg.data.sample_rate != 40000:
+        raise AssertionError("the f0-less .pth loaded as another model")
+    clip = test_clip(CLIP_S, SEED)
+    _, wall_ms, launches = timed_conversion(rvc, clip, index_rate=INDEX_RATE)
+    wrong = {k: n for k, n in launches.items() if (n > 0) != (k != "log_mel")}
+    if wrong:
+        raise AssertionError(f"the f0-less path launched {launches}: K1-K3 > 0, K4 = 0 expected")
+    with record_calls() as calls:
+        rvc.infer(clip, index_rate=INDEX_RATE)
+    with torch.inference_mode():
+        checked = check_calls(calls)
+    held = {}
+    for fn, _, _, _, _, _, cmp in checked:
+        h = held.setdefault(fn.__name__, {"calls": 0, "max_abs": 0.0, "rel_l2": 0.0})
+        h["calls"] += 1
+        for k in ("max_abs", "rel_l2", "emu_rel_l2", "emu_update_rel_l2"):
+            if k in cmp:
+                h[k] = max(h.get(k, 0.0), cmp[k])
+    del calls, checked
+    emit({"phase": "f0less", "config": "get_config(40000, model_use_f0=False)",
+          "decoder_channels": [m.out_channels for m in rvc.pipeline.synthesizer.dec.ups],
+          "clip_s": CLIP_S, "index_rate": INDEX_RATE, "wall_ms": wall_ms,
+          "realtime_x": CLIP_S * 1e3 / wall_ms, "launches": launches, "checked": held,
+          "parity": gpu_cpu_corr(rvc, model_path, index_path)})
+    return launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -467,7 +694,7 @@ def main() -> int:
     emit({"phase": "build", "seconds": build.build_all(verbose=True)})
 
     t0 = time.perf_counter()
-    rvc = RVC(get_config(48000), seed=SEED, device="cuda")
+    rvc = RVC(config=get_config(48000), seed=SEED, device="cuda")
     emit({"phase": "model", "seconds": time.perf_counter() - t0,
           "params_m": {n: sum(p.numel() for p in m.parameters()) / 1e6 for n, m in
                        (("synthesizer", rvc.pipeline.synthesizer),
@@ -507,7 +734,7 @@ def main() -> int:
     clip = test_clip(PARITY_S, SEED + 1)
     rvc.pipeline.source_noise = False
     gpu = rvc.infer(clip)
-    cpu_rvc = RVC(get_config(48000), seed=SEED, device="cpu", source_noise=False)
+    cpu_rvc = RVC(config=get_config(48000), seed=SEED, device="cpu", source_noise=False)
     t0 = time.perf_counter()
     cpu = cpu_rvc.infer(clip)
     if len(gpu) != len(cpu):
@@ -518,6 +745,16 @@ def main() -> int:
           "cpu_seconds": time.perf_counter() - t0})
     if not corr > 0.99:
         raise AssertionError(f"GPU vs CPU waveform corr {corr}")
+    del cpu_rvc
+
+    # the model's files (.pth, .index) live in the git-ignored build directory
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as work:
+        index_path, retrieval_launches = phase_retrieval(rvc, work)
+        f0less_launches = phase_f0less(index_path, work)
+    for entry, name in zip(summary, KERNELS):
+        entry["launches_by_path"] = {"pipeline": launches[name],
+                                     "retrieval": retrieval_launches[name],
+                                     "f0less": f0less_launches[name]}
 
     emit({"kernels": summary})
     print(card, flush=True)

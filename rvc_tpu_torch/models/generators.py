@@ -5,9 +5,10 @@ The ResBlocks of each upsampling stage run through the decoder kernels,
 dispatched as in the reference (`_stage_resblocks`): a stage with C <= 128
 is one call of K1 (`resblock_group`, the mean over its parallel chains);
 the C = 256 first stage runs K2 (`resblock_chain`) once per ResBlock and
-then takes the mean. The reference's packed-lane tail (`ops/packed_tail.py`)
-is a TPU layout of the same function and has no counterpart here; the
-plain HiFi-GAN (f0-less models) is not ported yet.
+then takes the mean. Both decoders share that dispatch: the NSF
+HiFi-GAN of f0 models and the plain HiFi-GAN of f0-less ones. The
+reference's packed-lane tail (`ops/packed_tail.py`) is a TPU layout of the
+same function and has no counterpart here.
 """
 
 from __future__ import annotations
@@ -28,6 +29,17 @@ from rvc_tpu_torch.models.layers import (
 from rvc_tpu_torch.ops.kernels.resblock import resblock_group
 
 GROUP_MAX_CHANNELS = 128
+
+
+def _stage_resblocks(x: torch.Tensor, blocks: Sequence[ResBlock],
+                     kernel_sizes: Tuple[int, ...],
+                     dilations: Tuple[Tuple[int, ...], ...]) -> torch.Tensor:
+    """The mean of one upsampling stage's parallel ResBlocks: one K1 call at
+    C <= 128, else K2 once per ResBlock."""
+    if x.shape[-1] <= GROUP_MAX_CHANNELS:
+        weights = tuple(t for b in blocks for t in b.stacked_weights())
+        return resblock_group(x, weights, kernel_sizes, dilations)
+    return sum(b(x) for b in blocks) / len(blocks)
 
 
 def sine_source(f0: torch.Tensor, upp: int, sample_rate: int, harmonic_num: int = 0,
@@ -120,14 +132,6 @@ class HiFiGANNSFGenerator(nn.Module):
         init_normal(self.ups)
         init_normal(self.resblocks)
 
-    def _stage_resblocks(self, x: torch.Tensor, i: int) -> torch.Tensor:
-        n = len(self.kernel_sizes)
-        blocks = self.resblocks[i * n:(i + 1) * n]
-        if self.chans[i] <= GROUP_MAX_CHANNELS:
-            weights = tuple(t for b in blocks for t in b.stacked_weights())
-            return resblock_group(x, weights, self.kernel_sizes, self.dilations)
-        return sum(b(x) for b in blocks) / n
-
     def forward(self, x: torch.Tensor, f0: torch.Tensor,
                 g: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -140,6 +144,48 @@ class HiFiGANNSFGenerator(nn.Module):
             n = noise_conv(har_source)
             m = min(x.shape[1], n.shape[1])
             x = x[:, :m] + n[:, :m]
-            x = self._stage_resblocks(x, i)
+            n = len(self.kernel_sizes)
+            x = _stage_resblocks(x, self.resblocks[i * n:(i + 1) * n], self.kernel_sizes,
+                                 self.dilations)
         # the default torch leaky_relu slope at the tail
+        return torch.tanh(self.conv_post(leaky_relu(x, 0.01)))
+
+
+class HiFiGANGenerator(nn.Module):
+    """Plain HiFi-GAN of f0-less models, no source: latent (B, T, C) ->
+    waveform (B, T*upp, 1) (`rvc_tpu/models/generators.py:HiFiGANGenerator`,
+    upstream `rvc/lib/algorithm/generators/hifigan.py`). Its upsampling
+    convs pad (k - u) // 2 with no output padding, unlike the NSF decoder's
+    for odd u."""
+
+    def __init__(self, initial_channel: int, resblock_kernel_sizes: Sequence[int],
+                 resblock_dilation_sizes: Sequence[Sequence[int]],
+                 upsample_rates: Sequence[int], upsample_initial_channel: int,
+                 upsample_kernel_sizes: Sequence[int], gin_channels: int):
+        super().__init__()
+        self.kernel_sizes = tuple(resblock_kernel_sizes)
+        self.dilations = tuple(tuple(d) for d in resblock_dilation_sizes)
+        self.upp = math.prod(upsample_rates)
+        chans = [upsample_initial_channel // (2 ** (i + 1)) for i in range(len(upsample_rates))]
+        self.conv_pre = Conv1d(initial_channel, upsample_initial_channel, 7, padding=3)
+        self.cond = Conv1d(gin_channels, upsample_initial_channel, 1)
+        self.ups = nn.ModuleList()
+        self.resblocks = nn.ModuleList()
+        for i, (u, k) in enumerate(zip(upsample_rates, upsample_kernel_sizes)):
+            self.ups.append(ConvTranspose1d(upsample_initial_channel // (2 ** i), chans[i], k,
+                                            stride=u, padding=(k - u) // 2))
+            for ks, ds in zip(self.kernel_sizes, self.dilations):
+                self.resblocks.append(ResBlock(chans[i], ks, ds))
+        self.conv_post = Conv1d(chans[-1], 1, 7, padding=3, bias=False)
+        init_normal(self.ups)
+        init_normal(self.resblocks)
+
+    def forward(self, x: torch.Tensor, g: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = self.conv_pre(x)
+        if g is not None:
+            x = x + self.cond(g)
+        n = len(self.kernel_sizes)
+        for i, up in enumerate(self.ups):
+            x = _stage_resblocks(up(leaky_relu(x)), self.resblocks[i * n:(i + 1) * n],
+                                 self.kernel_sizes, self.dilations)
         return torch.tanh(self.conv_post(leaky_relu(x, 0.01)))

@@ -1,17 +1,22 @@
 """Offline voice-conversion pipeline (counterpart of
-`rvc_tpu/pipelines/offline.py`, its fused RMVPE path):
+`rvc_tpu/pipelines/offline.py`):
 
     16 kHz mono -> high-pass 48 Hz -> reflect pad -> min-energy chunks ->
     per chunk: bucket pad -> f0 (log-mel [K4] -> RMVPE -> decode -> range
-    gate -> autotune -> semitone shift) -> HuBERT -> edge pad -> 2x
-    upsample + protect -> Synthesizer.infer [K3, K1, K2] -> trim ->
-    concat -> RMS envelope -> peak normalize.
+    gate -> autotune -> semitone shift) -> HuBERT -> IVF retrieval blend
+    (index_rate > 0) -> edge pad -> 2x upsample + protect ->
+    Synthesizer.infer [K3, K1, K2] -> trim -> concat -> RMS envelope ->
+    peak normalize.
 
 `convert_chunk` is the reference's `fused_convert`: the f0 program
 (`_build_f0_program`) and the conversion program (`_build_fused`) run
-eagerly on the pipeline's device. Retrieval (`index_rate`), the staged
-non-RMVPE path and the TPU dispatch machinery (packing, frozen weights,
-f16 transfers, async fetch) are not ported.
+eagerly on the pipeline's device. Without pitch guidance, or with an
+f0-less model, each chunk takes the staged path (`voice_conversion`):
+HuBERT -> retrieval -> edge pad -> 2x upsample -> Synthesizer.infer
+without pitch, trimmed on the host. The other pitch methods (`f0_method`
+other than rmvpe), `input_f0`, `proposed_pitch` and the TPU dispatch
+machinery (packing, frozen weights, f16 transfers, async fetch) are not
+ported.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from rvc_tpu_torch.configs import PipelineConfig
 from rvc_tpu_torch.models.rmvpe import decode_salience
 from rvc_tpu_torch.models.synthesizer import SOURCE_NOISE_SEED
 from rvc_tpu_torch.ops.kernels.melspec import log_mel
+from rvc_tpu_torch.retrieval.ivf import IVFFlatIndex, index_blend
 from rvc_tpu_torch.utils import audio as audio_utils
 
 SAMPLE_RATE = 16000
@@ -74,6 +80,20 @@ def upsample_protect(feats: torch.Tensor, feats_raw: torch.Tensor, pitchf: torch
     return f * w + fr * (1.0 - w)
 
 
+def _edge_pad(feats: torch.Tensor, n: int) -> torch.Tensor:
+    """Repeat the last frame of (B, T, C) n more times."""
+    return F.pad(feats.transpose(1, 2), (0, n), mode="replicate").transpose(1, 2)
+
+
+def retrieve(feats: torch.Tensor, index: IVFFlatIndex, index_rate: float) -> torch.Tensor:
+    """The retrieval blend of (B, T, C) HuBERT features: every frame's 8
+    nearest index vectors at the index's nprobe, blended in at index_rate."""
+    B, T, C = feats.shape
+    q = feats.reshape(B * T, C)
+    d, i = index.search_device(q, 8)
+    return index_blend(q, index.tensors(q.device)[0][i], d, index_rate).reshape(B, T, C)
+
+
 class Pipeline:
     """Offline conversion over the port's modules, all on one device.
 
@@ -115,22 +135,33 @@ class Pipeline:
         f0 = autotune_f0(f0, autotune_strength)
         return f0 * 2.0 ** (pitch_shift / 12.0)
 
+    def _features(self, audio: torch.Tensor, n_frames: int, index: Optional[IVFFlatIndex],
+                  index_rate: float) -> Tuple[torch.Tensor, torch.Tensor]:
+        """HuBERT features of padded audio (1, T), then the retrieval blend
+        when an index is given at index_rate > 0, both edge-padded so the x2
+        grid covers n_frames 10 ms frames: (feats, feats before retrieval)."""
+        feats = self.hubert(audio, output_hidden_states=True)
+        feats_raw = feats
+        if index is not None and index_rate > 0:
+            feats = retrieve(feats, index, index_rate)
+        hub_pad = (n_frames + 1) // 2 - feats.shape[1]
+        if hub_pad > 0:
+            feats, feats_raw = _edge_pad(feats, hub_pad), _edge_pad(feats_raw, hub_pad)
+        return feats, feats_raw
+
     def _convert(self, audio: torch.Tensor, f0: torch.Tensor, sid: int, p_len: int,
-                 protect: float) -> torch.Tensor:
+                 protect: float, index: Optional[IVFFlatIndex] = None,
+                 index_rate: float = 0.0) -> torch.Tensor:
         """The conversion program: padded audio (1, T) and its f0 -> wave
         (1, samples) at the target rate, before the trim."""
         p_len0 = audio.shape[1] // WINDOW
-        feats = self.hubert(audio, output_hidden_states=True)
-        # edge-replicate so the x2 feature grid covers every 10 ms frame
-        hub_pad = (p_len0 + 1) // 2 - feats.shape[1]
-        if hub_pad > 0:
-            feats = F.pad(feats.transpose(1, 2), (0, hub_pad), mode="replicate").transpose(1, 2)
+        feats, feats_raw = self._features(audio, p_len0, index, index_rate)
         t_feat = feats.shape[1] * 2
         f0 = f0[:, :t_feat] if p_len0 >= t_feat else F.pad(f0, (0, t_feat - p_len0))
         # zero f0 beyond the true (unpadded) frame count
         frame_valid = torch.arange(t_feat, device=f0.device)[None, :] < p_len
         f0 = torch.where(frame_valid, f0, torch.zeros_like(f0))
-        feats_up = upsample_protect(feats, feats, f0, protect)
+        feats_up = upsample_protect(feats, feats_raw, f0, protect)
         generator = None
         if self.source_noise:
             generator = torch.Generator(device=self.device)
@@ -141,24 +172,44 @@ class Pipeline:
                                          generator=generator)
         return wave[:, :, 0]
 
-    @torch.inference_mode()
-    def convert_chunk(self, audio0: np.ndarray, sid: int, pitch_shift: float,
-                      autotune_strength: float, protect: float,
-                      trim_frames: int = 0) -> np.ndarray:
-        """One padded 16 kHz chunk -> its waveform at the target rate, with
-        trim_frames 10 ms frames of context dropped from each end."""
+    def _upload(self, audio0: np.ndarray) -> torch.Tensor:
+        """A chunk bucket-padded as the reference pads it, on the device (1, T)."""
         n = len(audio0)
         n_pad = self._bucket_samples(n)
         padded = np.pad(audio0.astype(np.float32), (0, n_pad - n),
                         mode="reflect" if n_pad - n < n else "constant")
-        audio = torch.from_numpy(padded)[None].to(self.device)
-        p_len = n // self.window
+        return torch.from_numpy(padded)[None].to(self.device)
+
+    @torch.inference_mode()
+    def convert_chunk(self, audio0: np.ndarray, sid: int, pitch_shift: float,
+                      autotune_strength: float, protect: float,
+                      trim_frames: int = 0, index: Optional[IVFFlatIndex] = None,
+                      index_rate: float = 0.0) -> np.ndarray:
+        """One padded 16 kHz chunk -> its waveform at the target rate, with
+        trim_frames 10 ms frames of context dropped from each end."""
+        audio = self._upload(audio0)
+        p_len = len(audio0) // self.window
         f0 = self.f0(audio, pitch_shift, autotune_strength)
-        wave = self._convert(audio, f0, sid, p_len, protect)
+        wave = self._convert(audio, f0, sid, p_len, protect, index, index_rate)
         spf = self.tgt_sr // 100
         wave = wave[:, trim_frames * spf: wave.shape[1] - trim_frames * spf]
         out = wave[0].float().cpu().numpy()
         return out[: max(p_len - 2 * trim_frames, 0) * spf]
+
+    @torch.inference_mode()
+    def voice_conversion(self, audio0: np.ndarray, sid: int,
+                         index: Optional[IVFFlatIndex], index_rate: float) -> np.ndarray:
+        """The staged path without pitch: one padded 16 kHz chunk -> its
+        waveform at the target rate, p_len frames long, context untrimmed."""
+        audio = self._upload(audio0)
+        p_len = len(audio0) // self.window
+        feats, feats_raw = self._features(audio, p_len, index, index_rate)
+        t_feat = feats.shape[1] * 2
+        feats_up = upsample_protect(feats, feats_raw, torch.ones(1, t_feat, device=self.device),
+                                    1.0)
+        wave, _ = self.synthesizer.infer(feats_up, torch.tensor([p_len], device=self.device),
+                                         None, None, torch.tensor([sid], device=self.device))
+        return wave[0, :, 0].float().cpu().numpy()[: p_len * (self.tgt_sr // 100)]
 
     # ------------------------------------------------------------------
     def _bucket_samples(self, n: int) -> int:
@@ -188,19 +239,45 @@ class Pipeline:
         return bounds
 
     def pipeline(self, audio: np.ndarray, sid: int = 0, pitch_shift: float = 0.0,
+                 f0_method: str = "rmvpe", index: Optional[IVFFlatIndex] = None,
+                 index_rate: float = 0.75, pitch_guidance: bool = True,
                  volume_envelope: float = 1.0, protect: float = 0.5,
-                 f0_autotune: bool = False,
-                 f0_autotune_strength: float = 1.0) -> np.ndarray:
-        """Full conversion: 16 kHz mono float -> target-rate waveform."""
+                 f0_autotune: bool = False, f0_autotune_strength: float = 1.0,
+                 input_f0: Optional[np.ndarray] = None,
+                 proposed_pitch: bool = False) -> np.ndarray:
+        """Full conversion: 16 kHz mono float -> target-rate waveform.
+
+        Retrieval runs when an index is given and index_rate > 0. With
+        pitch guidance and an f0 model each chunk takes the fused RMVPE
+        path, trimmed on the device; an f0-less model takes the staged path
+        without pitch, trimmed on the host. An f0 model without pitch
+        guidance raises (its NSF decoder needs an f0).
+        """
+        if f0_method != "rmvpe" or input_f0 is not None or proposed_pitch:
+            raise NotImplementedError(
+                "only RMVPE pitch is ported: f0_method other than 'rmvpe', input_f0 and "
+                "proposed_pitch are not (ROADMAP §2.4)")
+        use_f0 = self.synthesizer.use_f0
+        if use_f0 and not pitch_guidance:
+            raise ValueError("pitch_guidance=False needs an f0-less model: an f0 model's "
+                             "NSF decoder needs pitch")
         audio = audio_utils.highpass_filter(np.asarray(audio, dtype=np.float32),
                                             SAMPLE_RATE, 48.0, 5)
         t_pad = self.t_pad
         audio_pad = np.pad(audio, (t_pad, t_pad), mode="reflect")
         strength = f0_autotune_strength if f0_autotune else 0.0
-        out = np.concatenate([
-            self.convert_chunk(audio_pad[s: e + 2 * t_pad], sid, pitch_shift, strength,
-                               protect, trim_frames=t_pad // self.window)
-            for s, e in self.chunk_bounds(audio)])
+        pad_tgt = int(t_pad * (self.tgt_sr / SAMPLE_RATE))
+        out_chunks = []
+        for s, e in self.chunk_bounds(audio):
+            chunk = audio_pad[s: e + 2 * t_pad]
+            if use_f0:
+                out_chunks.append(self.convert_chunk(
+                    chunk, sid, pitch_shift, strength, protect,
+                    trim_frames=t_pad // self.window, index=index, index_rate=index_rate))
+            else:
+                conv = self.voice_conversion(chunk, sid, index, index_rate)
+                out_chunks.append(conv[pad_tgt:-pad_tgt] if pad_tgt else conv)
+        out = np.concatenate(out_chunks)
         if volume_envelope != 1:
             out = audio_utils.change_rms(audio, SAMPLE_RATE, out, self.tgt_sr,
                                          volume_envelope)

@@ -1,16 +1,26 @@
-"""Carry the JAX package's parameters across to the port.
+"""Checkpoints into the port's modules (counterpart of
+`rvc_tpu/utils/weights.py`).
 
-Each function takes a parameter tree of `rvc_tpu` (nested dicts of numpy
-arrays, weight norm already fused) and returns the state dict of the
-port's module, in torch layouts and under the upstream checkpoint names.
-It is the inverse of the reference's `convert_*_state_dict`
-(`rvc_tpu/utils/weights.py`): conv weights (K, Cin, Cout) -> (Cout, Cin, K),
-transposed convs (K, Cin, Cout) -> (Cin, Cout, K), and the 2-D forms alike.
+Upstream torch checkpoints (`.pth`): the port's parameter names are the
+upstream ones, so `synthesizer_from_pth` / `hubert_from_pth` fuse the
+weight norm (both namings) and keep the keys the port has.
+`export_pth` writes the upstream inference format.
+
+Native checkpoints (`.safetensors` with a `.json` config sidecar) hold
+`rvc_tpu`'s flat '/'-joined parameter paths: `load_params` / `save_params`
+read and write the file format (no `safetensors` package needed), and
+`synthesizer_from_jax` / `hubert_from_jax` / `rmvpe_from_jax` map such a
+tree (weight norm already fused) onto the port's state dicts, in torch
+layouts: conv weights (K, Cin, Cout) -> (Cout, Cin, K), transposed convs
+(K, Cin, Cout) -> (Cin, Cout, K), and the 2-D forms alike.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import re
+import struct
 from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -161,3 +171,192 @@ def rmvpe_from_jax(params: Mapping, batch_stats: Mapping) -> Dict[str, torch.Ten
     for key in [k for k in out if k.endswith(".running_mean")]:
         out[key[: -len("running_mean")] + "num_batches_tracked"] = torch.tensor(0)
     return out
+
+
+# ---------------------------------------------------------------------------
+# upstream torch checkpoints (.pth)
+# ---------------------------------------------------------------------------
+
+
+def fuse_weight_norm(sd: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """Fold weight-norm (g, v) pairs into plain weights, in float32.
+
+    Both namings: ``X.weight_g`` / ``X.weight_v`` and
+    ``X.parametrizations.weight.original0`` / ``original1``. w = g v / |v|,
+    the norm over every axis where g has size 1 (dim = 0 convs give g
+    (C, 1, 1); HF's pos_conv uses dim = 2, g (1, 1, K)). g and v are upcast
+    before the fuse, so fp16 checkpoints fuse as the reference does.
+    """
+    out: Dict[str, np.ndarray] = {}
+    done = set()
+    for k in list(sd.keys()):
+        if k in done:
+            continue
+        m = re.match(r"(.*)\.parametrizations\.weight\.original0$", k)
+        if m is None:
+            m = re.match(r"(.*)\.weight_g$", k)
+            vkey = f"{m.group(1)}.weight_v" if m else None
+        else:
+            vkey = f"{m.group(1)}.parametrizations.weight.original1"
+        if m and vkey in sd:
+            g = np.asarray(sd[k], dtype=np.float32)
+            v = np.asarray(sd[vkey], dtype=np.float32)
+            axes = tuple(i for i, s in enumerate(g.shape) if s == 1) or tuple(range(1, v.ndim))
+            norm = np.sqrt(np.sum(v * v, axis=axes, keepdims=True))
+            out[f"{m.group(1)}.weight"] = g * v / np.maximum(norm, 1e-12)
+            done.update({k, vkey})
+        elif not re.search(r"\.(weight_g|weight_v|parametrizations\.)", k):
+            out[k] = np.asarray(sd[k])
+            done.add(k)
+    return out
+
+
+def load_torch_checkpoint(path: str) -> Dict[str, np.ndarray]:
+    """A .pth file (weights_only) -> {key: float32 array}, plus "__meta__":
+    the checkpoint's other entries. Raw state dicts, training checkpoints
+    (nested under "model") and inference exports (under "weight",
+    `rvc/train/process/extract_model.py`) all load."""
+    cpt = torch.load(path, map_location="cpu", weights_only=True)
+    meta = {}
+    for nest in ("model", "weight"):
+        if isinstance(cpt, dict) and isinstance(cpt.get(nest), dict):
+            meta = {k: v for k, v in cpt.items() if k != nest}
+            cpt = cpt[nest]
+            break
+    out = {k: v.float().numpy() if hasattr(v, "numpy") else np.asarray(v)
+           for k, v in cpt.items()}
+    out["__meta__"] = meta
+    return out
+
+
+def _tensors(sd: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
+
+
+def synthesizer_from_pth(sd: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """Upstream Synthesizer state dict (from `load_torch_checkpoint`) -> the
+    port's state dict: weight norm fused, the training-only enc_q dropped."""
+    fused = fuse_weight_norm({k: v for k, v in sd.items() if k != "__meta__"})
+    return _tensors({k: v for k, v in fused.items() if not k.startswith("enc_q.")})
+
+
+# the HF HuBERT / ContentVec keys the port has (the reference's
+# `_HUBERT_RULES`); the rest (masked_spec_embed, label_embs_concat, ...) go
+_HUBERT_KEYS = re.compile(
+    r"(?:hubert\.)?(feature_extractor\.conv_layers\.\d+\.conv\.weight"
+    r"|feature_extractor\.conv_layers\.0\.layer_norm\.(?:weight|bias)"
+    r"|feature_projection\.(?:layer_norm|projection)\.(?:weight|bias)"
+    r"|encoder\.pos_conv_embed\.conv\.(?:weight|bias)"
+    r"|encoder\.layer_norm\.(?:weight|bias)"
+    r"|encoder\.layers\.\d+\.attention\.(?:[qkv]|out)_proj\.(?:weight|bias)"
+    r"|encoder\.layers\.\d+\.(?:layer_norm|final_layer_norm)\.(?:weight|bias)"
+    r"|encoder\.layers\.\d+\.feed_forward\.(?:intermediate|output)_dense\.(?:weight|bias))"
+    r"|(final_proj\.(?:weight|bias))")
+
+
+def hubert_from_pth(sd: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """HF HubertModel or ContentVec state dict -> `models.hubert.HubertModel`
+    state dict: weight norm fused (pos_conv), the "hubert." prefix dropped."""
+    out = {}
+    for k, v in fuse_weight_norm({k: v for k, v in sd.items() if k != "__meta__"}).items():
+        m = _HUBERT_KEYS.fullmatch(k)
+        if m:
+            out[m.group(1) or m.group(2)] = v
+    return _tensors(out)
+
+
+# the layers upstream keeps under weight norm (`rvc/lib/algorithm`)
+_WEIGHT_NORM = re.compile(
+    r"(flow\.flows\.\d+\.enc\.(?:in_layers\.\d+|res_skip_layers\.\d+|cond_layer)"
+    r"|dec\.ups\.\d+|dec\.resblocks\.\d+\.convs[12]\.\d+)\.weight")
+
+
+def export_pth(state: Mapping[str, torch.Tensor], cfg, path: str, *,
+               pitch_guidance: bool = True, name: str = "model") -> str:
+    """A port Synthesizer state dict -> the upstream inference .pth
+    (`rvc/train/process/extract_model.py`): fp16 "weight" under the
+    upstream keys with the weight norm split again as
+    `parametrizations.weight.original0/1`, the 18-element "config" list and
+    "f0"."""
+    sd = {}
+    for k, v in state.items():
+        w = v.detach().float().cpu()
+        m = _WEIGHT_NORM.fullmatch(k)
+        if m:
+            g = torch.linalg.vector_norm(w, dim=tuple(range(1, w.ndim)), keepdim=True)
+            sd[f"{m.group(1)}.parametrizations.weight.original0"] = g.half()
+            sd[f"{m.group(1)}.parametrizations.weight.original1"] = w.half()
+        else:
+            sd[k] = w.half()
+    m, d = cfg.model, cfg.data
+    config = [d.filter_length // 2 + 1, 32, m.inter_channels, m.hidden_channels,
+              m.filter_channels, m.n_heads, m.n_layers, m.kernel_size, m.p_dropout,
+              str(m.resblock), list(m.resblock_kernel_sizes),
+              [list(x) for x in m.resblock_dilation_sizes], list(m.upsample_rates),
+              m.upsample_initial_channel, list(m.upsample_kernel_sizes), m.spk_embed_dim,
+              m.gin_channels, d.sample_rate]
+    torch.save({"weight": sd, "config": config, "sr": d.sample_rate,
+                "f0": int(pitch_guidance), "version": "v2", "model_name": name,
+                "vocoder": m.vocoder}, path)
+    return path
+
+
+# ---------------------------------------------------------------------------
+# native checkpoints: the safetensors file format
+# (8-byte little-endian header length, a JSON header, raw little-endian data)
+# ---------------------------------------------------------------------------
+
+_ST_DTYPES = {"F64": "<f8", "F32": "<f4", "F16": "<f2", "I64": "<i8", "I32": "<i4",
+              "I16": "<i2", "I8": "i1", "U8": "u1", "BOOL": "?"}
+_ST_CODES = {np.dtype(v): k for k, v in _ST_DTYPES.items()}
+
+
+def load_params(path: str) -> Dict[str, np.ndarray]:
+    """A .safetensors file -> {flat '/'-joined path: array} (BF16 upcast to
+    float32). Raises ValueError on a file that does not parse."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if len(data) < 8:
+        raise ValueError(f"{path}: not a safetensors file ({len(data)} bytes)")
+    n = struct.unpack("<Q", data[:8])[0]
+    if 8 + n > len(data):
+        raise ValueError(f"{path}: header of {n} bytes past the end of the file")
+    header = json.loads(data[8:8 + n])
+    header.pop("__metadata__", None)
+    out = {}
+    for key, info in header.items():
+        begin, end = info["data_offsets"]
+        raw = data[8 + n + begin: 8 + n + end]
+        dtype, shape = info["dtype"], tuple(info["shape"])
+        if dtype == "BF16":
+            arr = (np.frombuffer(raw, "<u2").astype(np.uint32) << 16).view(np.float32)
+        elif dtype in _ST_DTYPES:
+            arr = np.frombuffer(raw, _ST_DTYPES[dtype])
+        else:
+            raise ValueError(f"{path}: {key} has unsupported dtype {dtype}")
+        if arr.size != int(np.prod(shape)) or len(raw) != end - begin:
+            raise ValueError(f"{path}: {key} holds {len(raw)} bytes for shape {shape}")
+        out[key] = arr.reshape(shape).astype(arr.dtype.newbyteorder("="))
+    return out
+
+
+def save_params(params: Mapping, path: str, config: Optional[dict] = None) -> None:
+    """Parameters (nested or flat dicts of arrays) -> a .safetensors file
+    under their '/'-joined paths, and `config` as the .json sidecar."""
+    header, blobs, offset = {}, [], 0
+    for key, v in sorted(flatten_tree(params).items()):
+        v = np.ascontiguousarray(v, dtype=v.dtype.newbyteorder("<"))
+        raw = v.tobytes()
+        header[key] = {"dtype": _ST_CODES[v.dtype], "shape": list(v.shape),
+                       "data_offsets": [offset, offset + len(raw)]}
+        blobs.append(raw)
+        offset += len(raw)
+    head = json.dumps(header, separators=(",", ":")).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)) + head)
+        for raw in blobs:
+            f.write(raw)
+    if config is not None:
+        with open(os.path.splitext(path)[0] + ".json", "w") as f:
+            json.dump(config, f, indent=2)

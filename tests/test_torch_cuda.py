@@ -144,6 +144,25 @@ def test_resblock_group(dev, C, T):
     _assert_bf16_kernel(got, KR.resblock_group_reference, x, weights, (3, 7, 11), dil)
 
 
+@pytest.mark.parametrize("nprobe", [1, 4])
+def test_ivf_search_and_blend(dev, nprobe):
+    """Retrieval on the card (cuBLAS float32 product, torch.topk) against
+    the host, Gaussian data where neighbours do not tie: the same ids,
+    distances within 1e-4 relative, the same blend."""
+    from rvc_tpu_torch.retrieval import build_index, index_blend
+
+    g = torch.Generator().manual_seed(nprobe)
+    index = build_index(torch.randn((3000, 768), generator=g).numpy(), nlist=40, device="cpu")
+    q = torch.randn((200, 768), generator=g)
+    d, i = index.search_device(q.to(dev), 8, nprobe)
+    d_ref, i_ref = index.search_device(q, 8, nprobe)
+    torch.testing.assert_close(i.cpu(), i_ref, rtol=0, atol=0)
+    torch.testing.assert_close(d.cpu(), d_ref, rtol=1e-4, atol=1e-2)
+    got = index_blend(q.to(dev), index.tensors(dev)[0][i], d, 0.75)
+    ref = index_blend(q, index.tensors("cpu")[0][i_ref], d_ref, 0.75)
+    torch.testing.assert_close(got.cpu(), ref, rtol=1e-4, atol=1e-5)
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):
         KR.resblock_chain(torch.zeros((1, 10, 48), device=dev),

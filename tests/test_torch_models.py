@@ -14,7 +14,15 @@ from rvc_tpu.models.flow import ResidualCouplingBlock as JaxFlow
 from rvc_tpu.models.rmvpe import decode_salience as jax_decode
 from rvc_tpu_torch.models.generators import sine_source
 from rvc_tpu_torch.models.rmvpe import decode_salience
-from torch_port_helpers import SMALL_SYNTH, assert_parity, huberts, rmvpes, synthesizers, t
+from torch_port_helpers import (
+    SMALL_SYNTH,
+    assert_parity,
+    huberts,
+    numpy_state,
+    rmvpes,
+    synthesizers,
+    t,
+)
 
 M = SMALL_SYNTH.model
 B, T = 2, 24
@@ -136,3 +144,43 @@ def test_rmvpe_and_decode():
     sal[:, -4:, 200] = 0.02  # below the 0.03 voicing threshold -> 0 Hz
     np.testing.assert_allclose(decode_salience(t(sal)).numpy(),
                                np.asarray(jax_decode(jnp.asarray(sal), 0.03)), rtol=1e-5)
+
+
+@pytest.mark.parametrize("rates", [None, ((3, 5), (6, 10))], ids=["32k-small", "odd-rates"])
+@torch.no_grad()
+def test_hifigan_generator(rates):
+    """The plain HiFi-GAN of f0-less models: padding (k - u) // 2 and no
+    output padding, also at odd rates where the NSF decoder pads otherwise."""
+    from rvc_tpu.utils import weights as W
+    from rvc_tpu_torch.models.generators import HiFiGANGenerator
+
+    up_rates, up_kernels = rates or (M.upsample_rates, M.upsample_kernel_sizes)
+    args = (M.inter_channels, M.resblock_kernel_sizes, M.resblock_dilation_sizes, up_rates,
+            M.upsample_initial_channel, up_kernels, M.gin_channels)
+    torch.manual_seed(5)
+    port = HiFiGANGenerator(*args).eval()
+    sd = {f"dec.{k}": v for k, v in numpy_state(port).items()}
+    params = W.convert_synthesizer_state_dict(sd)["dec"]
+    rng = _rng(7)
+    x = rng.standard_normal((1, T, M.inter_channels)).astype(np.float32)
+    g = rng.standard_normal((1, 1, M.gin_channels)).astype(np.float32)
+    ref = JG.HiFiGANGenerator(*args).apply({"params": params}, jnp.asarray(x), jnp.asarray(g))
+    got = port(t(x), t(g))
+    assert got.shape == ref.shape
+    if rates is None:  # even rates: exactly T * upp samples (odd k - u adds one a stage)
+        assert got.shape == (1, T * int(np.prod(up_rates)), 1)
+    assert_parity(got.numpy(), np.asarray(ref), "HiFiGANGenerator")
+
+
+@torch.no_grad()
+def test_synthesizer_infer_f0less():
+    port, jnet, params = synthesizers(use_f0=False)
+    assert not hasattr(port.enc_p, "emb_pitch") and not hasattr(port.dec, "m_source")
+    rng = _rng(8)
+    phone = rng.standard_normal((1, T, M.text_enc_hidden_dim)).astype(np.float32)
+    lengths, sid = np.array([T - 2], np.int32), np.array([1], np.int32)
+    ref, _ = jnet.apply({"params": params}, jnp.asarray(phone), jnp.asarray(lengths), None, None,
+                        jnp.asarray(sid), method=jnet.infer)
+    got, _ = port.infer(t(phone), t(lengths), None, None, t(sid).long())
+    assert got.shape == ref.shape
+    assert_parity(got.numpy(), np.asarray(ref), "f0-less Synthesizer.infer")

@@ -31,8 +31,9 @@ def test_no_forbidden_imports(path):
 
 
 def test_import_leaves_jax_out():
-    code = ("import sys, rvc_tpu_torch.api, rvc_tpu_torch.ops.kernels.melspec, "
-            "rvc_tpu_torch.ops.kernels.attention, rvc_tpu_torch.ops.kernels.resblock\n"
+    code = ("import sys, rvc_tpu_torch.api, rvc_tpu_torch.cli, rvc_tpu_torch.retrieval, "
+            "rvc_tpu_torch.ops.kernels.melspec, rvc_tpu_torch.ops.kernels.attention, "
+            "rvc_tpu_torch.ops.kernels.resblock\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax') or m.startswith('rvc_tpu.') or m == 'rvc_tpu']\n"
             "assert not bad, bad\n")

@@ -7,17 +7,19 @@ import numpy as np
 import pytest
 import torch
 
+from rvc_tpu import retrieval as JR
 from rvc_tpu.pipelines.offline import Pipeline as JaxPipeline
 from rvc_tpu.pitch import PitchExtractor
+from rvc_tpu_torch import retrieval as PR
 from rvc_tpu_torch.pipelines.offline import Pipeline
 from torch_port_helpers import huberts, rmvpes, synthesizers
 
 SR = 32000
+UPS_GAIN = 20.0   # see torch_port_helpers.synthesizers
 
 
-@pytest.fixture(scope="module")
-def pipelines():
-    port_s, jax_s, s_params = synthesizers()
+def _pipelines(use_f0: bool, ups_gain: float = 1.0):
+    port_s, jax_s, s_params = synthesizers(use_f0=use_f0, ups_gain=ups_gain)
     port_h, jax_h, h_params = huberts()
     port_r, jax_r, r_vars = rmvpes()
     pitch = PitchExtractor("rmvpe", model=SimpleNamespace(model=jax_r, variables=r_vars))
@@ -27,10 +29,29 @@ def pipelines():
     return ref, Pipeline(SR, port_s, port_h, port_r, source_noise=False)
 
 
-def _clip(seconds=0.9, seed=0):
+@pytest.fixture(scope="module")
+def pipelines():
+    return _pipelines(use_f0=True)
+
+
+@pytest.fixture(scope="module")
+def indexes():
+    """(JAX index, port index) of the same arrays: IVFFlat over the small
+    HuBERT's features of six chirps that start 10-60 Hz above the test
+    clips', so a clip's frames fall near stored vectors but on none."""
+    port_h = huberts()[0]
+    with torch.inference_mode():
+        feats = np.concatenate([port_h(torch.from_numpy(_clip(1.0, seed=s, f_start=140 + 10 * s))
+                                       [None])[0].numpy() for s in range(1, 7)])
+    ref = JR.build_index(feats, seed=0)
+    return ref, PR.IVFFlatIndex(centroids=ref.centroids.copy(), vectors=ref.vectors.copy(),
+                                list_ids=ref.list_ids.copy(), nprobe=ref.nprobe)
+
+
+def _clip(seconds=0.9, seed=0, f_start=140.0):
     rng = np.random.default_rng(seed)
     t = np.arange(int(seconds * 16000)) / 16000
-    phase = 2 * np.pi * (140 * t + 60 * t * t)
+    phase = 2 * np.pi * (f_start * t + 60 * t * t)
     return (0.5 * np.sin(phase) + 0.01 * rng.standard_normal(len(t))).astype(np.float32)
 
 
@@ -50,6 +71,57 @@ def test_pipeline_matches_jax(pipelines, monkeypatch, kw):
     assert got.shape == ref.shape == (int(0.9 * SR),)
     corr = np.corrcoef(got, ref)[0, 1]
     assert corr > 0.995, f"waveform corr {corr:.6f}"
+
+
+def test_pipeline_with_index_matches_jax(indexes, monkeypatch):
+    """Retrieval at index_rate 0.75 with the protect blend (0.33) toward the
+    pre-retrieval features, on the fused path: waveform corr > 0.995. The
+    decoder's upsampling weights are scaled up so that the waveform follows
+    the features, not only the sine source."""
+    monkeypatch.setenv("RVC_TPU_SOURCE_NOISE", "0")
+    monkeypatch.setenv("RVC_TPU_F16_IN", "0")
+    monkeypatch.setenv("RVC_TPU_F16_OUT", "0")
+    ref_pipe, port_pipe = _pipelines(use_f0=True, ups_gain=UPS_GAIN)
+    jax_index, port_index = indexes
+    clip = _clip()
+    kw = dict(sid=1, index_rate=0.75, protect=0.33)
+    ref = ref_pipe.pipeline(clip, f0_method="rmvpe", index=jax_index, **kw)
+    got = port_pipe.pipeline(clip, index=port_index, **kw)
+    plain = port_pipe.pipeline(clip, **kw)
+    assert got.shape == ref.shape == (int(0.9 * SR),)
+    corr = np.corrcoef(got, ref)[0, 1]
+    assert corr > 0.995, f"waveform corr {corr:.6f}"
+    assert np.corrcoef(got, plain)[0, 1] < 0.999  # retrieval moved the output
+
+
+@pytest.mark.parametrize("with_index", [False, True], ids=["no-index", "index"])
+def test_f0less_staged_path_matches_jax(indexes, monkeypatch, with_index):
+    """An f0-less model through both staged paths (no pitch, host trim of
+    pad_tgt): the same length, waveform corr > 0.995."""
+    monkeypatch.setenv("RVC_TPU_F16_IN", "0")
+    ref_pipe, port_pipe = _pipelines(use_f0=False, ups_gain=UPS_GAIN)
+    jax_index, port_index = indexes if with_index else (None, None)
+    clip = _clip(1.3, seed=7)
+    ref = ref_pipe.pipeline(clip, sid=1, index=jax_index, index_rate=0.75, pitch_guidance=False)
+    got = port_pipe.pipeline(clip, sid=1, index=port_index, index_rate=0.75,
+                             pitch_guidance=False)
+    assert got.shape == ref.shape == (int(1.3 * SR),)
+    corr = np.corrcoef(got, ref)[0, 1]
+    assert corr > 0.995, f"waveform corr {corr:.6f}"
+    if with_index:  # retrieval moved the output
+        plain = port_pipe.pipeline(clip, sid=1, pitch_guidance=False)
+        assert np.corrcoef(got, plain)[0, 1] < 0.999
+
+
+@pytest.mark.parametrize("kw,error", [
+    (dict(f0_method="crepe"), NotImplementedError),
+    (dict(input_f0=np.ones(50, np.float32)), NotImplementedError),
+    (dict(proposed_pitch=True), NotImplementedError),
+    (dict(pitch_guidance=False), ValueError),
+], ids=["f0_method", "input_f0", "proposed_pitch", "f0-model-without-pitch"])
+def test_paths_not_ported_raise(pipelines, kw, error):
+    with pytest.raises(error):
+        pipelines[1].pipeline(_clip(0.3), **kw)
 
 
 def test_f0_program_matches(pipelines, monkeypatch):
@@ -90,7 +162,7 @@ def test_rvc_loads_port_state_and_converts_a_file(tmp_path):
     port_s, _, _ = synthesizers()
     cfg = get_config(32000, **{k: v for k, v in SMALL_SYNTH_ARGS.items()
                                if k != "model_text_enc_hidden_dim"})
-    rvc = RVC(cfg, device="cpu", synthesizer_state={
+    rvc = RVC(config=cfg, device="cpu", synthesizer_state={
         k: v for k, v in port_s.state_dict().items() if not k.startswith("enc_p.emb_phone")}
         | {"enc_p.emb_phone.weight": torch.zeros(32, 768),
            "enc_p.emb_phone.bias": torch.zeros(32)})
