@@ -50,8 +50,23 @@ Phases, one JSON line each (a `kernel` line per kernel call):
             index, through the staged path: wall ms, the launches (K1-K3 > 0,
             K4 = 0), every kernel call of one conversion held against its
             plain version at the bars above (not timed), GPU-vs-CPU corr
+  pitch     the staged path's pitch methods on the main path's model and
+            clip: crepe (full), crepe-tiny, fcpe (12 x 512), pm, dio,
+            harvest, hybrid[rmvpe+crepe-tiny+harvest], rmvpe with
+            proposed_pitch, and input_f0 (the clip's RMVPE contour through a
+            text file); per run the wall ms after a warm call, the realtime
+            factor, the output length, the launches (K1-K3 > 0; K4 > 0
+            exactly where RMVPE runs), the voiced share, and the extractor
+            alone on its 15.5 s chunk (CUDA events for the networks, the
+            host clock for DSP and hybrids; CREPE full and FCPE beside their
+            FLOP and float32 bound); every kernel call of one staged crepe
+            conversion held against its plain version; crepe (0.5 s) and
+            fcpe (2 s) f0 on the card against the host (voicing >= 99%,
+            median |cents| < 1); the staged crepe-tiny waveform on a 2 s
+            clip, GPU vs CPU corr > 0.99
 Then the `kernels` summary line (per kernel: the sums over its calls; the
-launches of each path's run beside the main path's), the card line, and
+launches of each path's run beside the main path's, `staged_crepe` and
+`staged_rmvpe` among them), the card line, and
 last {"ok": true, "device": {...}}. Any failed check raises: the exit code
 is non-zero and the last line is not printed. Without a CUDA device, or
 run outside the repository, it fails before printing any result.
@@ -431,7 +446,7 @@ def phase_stages(rvc) -> None:
     from torch.nn import functional as F
 
     from rvc_tpu_torch.ops.kernels.melspec import log_mel
-    from rvc_tpu_torch.pipelines.offline import coarse_f0, upsample_protect
+    from rvc_tpu_torch.pipelines.offline import coarse_f0_torch, upsample_protect
     from rvc_tpu_torch.utils import audio as audio_utils
 
     p, synth = rvc.pipeline, rvc.pipeline.synthesizer
@@ -463,7 +478,7 @@ def phase_stages(rvc) -> None:
         phone = upsample_protect(feats, feats, f0, 0.5)
         lengths = torch.tensor([n // 160], device=rvc.device)
         sid = torch.tensor([0], device=rvc.device)
-        pitch = coarse_f0(f0)
+        pitch = coarse_f0_torch(f0)
         st["synthesizer"] = cuda_ms(lambda: synth.infer(phone, lengths, pitch, f0, sid))
         m_p, _, x_mask = synth.enc_p(phone, pitch, lengths)
         g = synth.emb_g(sid)[:, None, :]
@@ -674,6 +689,212 @@ def phase_f0less(index_path: str, work: str) -> dict:
     return launches
 
 
+NEURAL = ("rmvpe", "crepe", "crepe-tiny", "fcpe")
+# the pitch phase's staged runs: name -> RVC.infer arguments ("input_f0" is
+# filled in from the clip's RMVPE contour, read back from a text file)
+PITCH_RUNS = {
+    "crepe": dict(f0_method="crepe"),
+    "crepe-tiny": dict(f0_method="crepe-tiny"),
+    "fcpe": dict(f0_method="fcpe"),
+    "pm": dict(f0_method="pm"),
+    "dio": dict(f0_method="dio"),
+    "harvest": dict(f0_method="harvest"),
+    "hybrid[rmvpe+crepe-tiny+harvest]": dict(f0_method="hybrid[rmvpe+crepe-tiny+harvest]"),
+    "rmvpe+proposed_pitch": dict(f0_method="rmvpe", proposed_pitch=True),
+    "input_f0": dict(),
+}
+
+
+def crepe_work(model, frames: int) -> tuple:
+    """(FLOP, bytes) of CREPE's network on `frames` frames: every conv
+    output position's MACs and the classifier's; the frames, the weights
+    and the probabilities each moved once."""
+    macs, h = 0, 1024
+    for i in range(1, 7):
+        conv = getattr(model, f"conv{i}")
+        cout, cin, k, _ = conv.weight.shape
+        h = (h + (508 if i == 1 else 63) - k) // conv.stride[0] + 1
+        macs += h * cout * cin * k
+        h //= 2
+    macs += model.classifier.weight.numel()
+    params = sum(p.numel() for p in model.parameters())
+    return 2 * frames * macs, 4 * (frames * (1024 + 360) + params)
+
+
+def fcpe_work(model, frames: int) -> tuple:
+    """(FLOP, bytes) of FCPE's network on `frames` frames: every Conv1d and
+    Linear (each weight used once a frame), and each layer's performer
+    feature maps and linear attention (4 H M D MACs a frame); the mel, the
+    weights and the salience each moved once."""
+    from torch import nn
+
+    macs = sum(m.weight.numel() for m in model.modules() if isinstance(m, (nn.Conv1d, nn.Linear)))
+    for layer in model.decoder._layers:
+        m, d = layer.attn.fast_attention.projection_matrix.shape
+        macs += 4 * layer.attn.heads * m * d
+    params = sum(p.numel() for p in model.parameters())
+    return 2 * frames * macs, 4 * (frames * (128 + 360) + params)
+
+
+def crepe_layers(model, frames) -> list:
+    """Each of CREPE's six layers alone on the clip's frames: the conv's
+    CUDA-event ms (cuDNN's default algorithm, and the one its autotuner
+    picks with `cudnn.benchmark`), its FLOP and achieved TFLOP/s, and the
+    ms of the ReLU, BatchNorm and pool after it."""
+    import torch
+    from torch.nn import functional as F
+
+    out, h = [], frames[:, None, :, None]
+    with torch.inference_mode():
+        for i in range(1, 7):
+            conv, bn = getattr(model, f"conv{i}"), getattr(model, f"conv{i}_BN")
+            x = F.pad(h, (0, 0, 254, 254) if i == 1 else (0, 0, 31, 32))
+            y = conv(x)
+            ms = cuda_ms(lambda: conv(x))
+            torch.backends.cudnn.benchmark = True
+            try:
+                bench_ms = cuda_ms(lambda: conv(x))
+            finally:
+                torch.backends.cudnn.benchmark = False
+            flop = 2 * y.numel() * conv.in_channels * conv.kernel_size[0]
+            rest_ms = cuda_ms(lambda: F.max_pool2d(bn(F.relu(y)), (2, 1), (2, 1)))
+            out.append({"layer": i, "out": list(y.shape), "conv_ms": ms,
+                        "conv_ms_benchmark": bench_ms, "tflop": flop / 1e12,
+                        "tflop_per_s": flop / ms / 1e9, "relu_bn_pool_ms": rest_ms})
+            h = F.max_pool2d(bn(F.relu(y)), (2, 1), (2, 1))
+            del x, y
+    return out
+
+
+def pitch_vs_host(method: str, seconds: float) -> dict:
+    """`method`'s f0 of a seeded clip on the card against the port's CPU
+    path with the same seeded weights: voicing agreement >= 99% of frames
+    and a median |delta cents| < 1 on frames voiced on both."""
+    import numpy as np
+
+    from rvc_tpu_torch.pitch import PitchExtractor
+
+    clip = test_clip(seconds, SEED + 2)
+    gpu = PitchExtractor(method, device="cuda").extract(clip)
+    cpu = PitchExtractor(method, device="cpu").extract(clip)
+    if gpu.shape != cpu.shape:
+        raise AssertionError(f"{method}: card gave {gpu.shape} frames, host {cpu.shape}")
+    both = (gpu > 0) & (cpu > 0)
+    out = {"clip_s": seconds, "frames": len(gpu), "voiced_share": float(both.mean()),
+           "voicing_agreement": float(((gpu > 0) == (cpu > 0)).mean()),
+           "median_abs_cents": float(np.median(np.abs(1200 * np.log2(gpu[both] / cpu[both]))))
+           if both.any() else None}
+    if not (out["voicing_agreement"] >= 0.99 and both.any() and out["median_abs_cents"] < 1):
+        raise AssertionError(f"{method} f0 on the card against the host: {out}")
+    return out
+
+
+def phase_pitch(rvc, work: str) -> dict:
+    """The staged path's pitch methods on the main path's 48 kHz model and
+    the 13.5 s clip: a warm and a timed conversion each, then the
+    extractor alone on the chunk it sees; card-vs-host checks; every kernel
+    call of one staged crepe conversion held against its plain version.
+    Returns {"staged_crepe": launches, "staged_rmvpe": launches}."""
+    import numpy as np
+    import torch
+
+    from rvc_tpu_torch.api import RVC
+    from rvc_tpu_torch.configs import get_config
+    from rvc_tpu_torch.models.rmvpe import RMVPE
+    from rvc_tpu_torch.ops.kernels import record_calls
+    from rvc_tpu_torch.utils import audio as audio_utils
+
+    p = rvc.pipeline
+    p.source_noise = True                # as in the main path's timed run
+    clip = test_clip(CLIP_S, SEED)
+    # the chunk the extractor sees: high-passed, reflect-padded by t_pad
+    chunk = np.pad(audio_utils.highpass_filter(clip, 16000, 48.0, 5), (p.t_pad, p.t_pad),
+                   mode="reflect")
+    # a user's f0 file: the clip's RMVPE contour, read back as the CLI reads it
+    f0_path = os.path.join(work, "f0.txt")
+    np.savetxt(f0_path, RMVPE(p.rmvpe).infer_from_audio(clip))
+    input_f0 = np.loadtxt(f0_path, dtype=np.float32).ravel()
+    runs, by_path = {}, {}
+    for name, kwargs in PITCH_RUNS.items():
+        if name == "input_f0":
+            kwargs = dict(input_f0=input_f0)
+        out, wall_ms, launches = timed_conversion(rvc, clip, **kwargs)
+        rmvpe_runs = "rmvpe" in kwargs.get("f0_method", "")
+        wrong = {k: n for k, n in launches.items() if (n > 0) != (k != "log_mel" or rmvpe_runs)}
+        if wrong:
+            raise AssertionError(f"staged {name} launched {launches}: K1-K3 > 0 and K4 "
+                                 f"{'> 0' if rmvpe_runs else '= 0'} expected")
+        run = {"wall_ms": wall_ms, "realtime_x": CLIP_S * 1e3 / wall_ms,
+               "out_samples": len(out), "launches": launches}
+        if name == "input_f0":
+            f0 = input_f0
+        else:
+            ext = p.pitch_extractor
+            if ext.method in NEURAL:
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                f0 = ext.extract(chunk)
+                end.record()
+                end.synchronize()
+                run.update(extract_ms=start.elapsed_time(end), extract_clock="cuda events")
+            else:
+                t0 = time.perf_counter()
+                f0 = ext.extract(chunk)
+                run.update(extract_ms=1e3 * (time.perf_counter() - t0), extract_clock="host")
+            run["f0_frames"] = len(f0)
+            if ext.method in ("crepe", "fcpe"):
+                model = ext._model.model
+                flop, nbytes = (crepe_work if ext.method == "crepe" else fcpe_work)(
+                    model, len(f0))
+                bound_ms, bound_by = bound(flop, nbytes, PEAK_F32)
+                run.update(network_tflop=flop / 1e12, bound_ms=bound_ms, bound_by=bound_by,
+                           bound=bound_text(PEAK_F32))
+            if ext.method == "crepe":
+                from rvc_tpu_torch.models.crepe import frame_audio
+
+                frames = frame_audio(torch.from_numpy(chunk)[None].to(rvc.device))[0]
+                run["layers"] = crepe_layers(ext._model.model, frames)
+                del frames
+        run["voiced_share"] = float((np.asarray(f0) > 0).mean())
+        runs[name] = run
+        if name == "crepe":
+            by_path["staged_crepe"] = launches
+        elif name == "rmvpe+proposed_pitch":
+            by_path["staged_rmvpe"] = launches
+
+    # every kernel call of one staged crepe conversion against its plain version
+    with record_calls() as calls:
+        rvc.infer(clip, f0_method="crepe")
+    with torch.inference_mode():
+        checked = check_calls(calls)
+    held = {}
+    for fn, _, _, _, _, _, cmp in checked:
+        h = held.setdefault(fn.__name__, {"calls": 0, "max_abs": 0.0, "rel_l2": 0.0})
+        h["calls"] += 1
+        for k in ("max_abs", "rel_l2", "emu_rel_l2", "emu_update_rel_l2"):
+            if k in cmp:
+                h[k] = max(h.get(k, 0.0), cmp[k])
+    del calls, checked
+
+    # the staged crepe-tiny waveform on the card against the host, source noise off
+    short = test_clip(PARITY_S, SEED + 1)
+    p.source_noise = False
+    gpu = rvc.infer(short, f0_method="crepe-tiny")
+    t0 = time.perf_counter()
+    cpu = RVC(config=get_config(48000), seed=SEED, device="cpu",
+              source_noise=False).infer(short, f0_method="crepe-tiny")
+    corr = float(np.corrcoef(gpu, cpu)[0, 1]) if len(gpu) == len(cpu) else float("nan")
+    parity = {"clip_s": PARITY_S, "waveform_corr": corr,
+              "cpu_seconds": time.perf_counter() - t0}
+    if not corr > 0.99:
+        raise AssertionError(f"staged crepe-tiny, GPU vs CPU: {len(gpu)} / {len(cpu)} "
+                             f"samples, waveform corr {corr}")
+    emit({"phase": "pitch", "clip_s": CLIP_S, "chunk_samples": len(chunk), "runs": runs,
+          "crepe_checked": held, "crepe_vs_host": pitch_vs_host("crepe", 0.5),
+          "fcpe_vs_host": pitch_vs_host("fcpe", 2.0), "crepe_tiny_parity": parity})
+    return by_path
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -751,10 +972,12 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as work:
         index_path, retrieval_launches = phase_retrieval(rvc, work)
         f0less_launches = phase_f0less(index_path, work)
+        pitch_launches = phase_pitch(rvc, work)
     for entry, name in zip(summary, KERNELS):
         entry["launches_by_path"] = {"pipeline": launches[name],
                                      "retrieval": retrieval_launches[name],
-                                     "f0less": f0less_launches[name]}
+                                     "f0less": f0less_launches[name],
+                                     **{k: v[name] for k, v in pitch_launches.items()}}
 
     emit({"kernels": summary})
     print(card, flush=True)

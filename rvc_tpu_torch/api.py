@@ -159,12 +159,16 @@ class RVC:
               volume_envelope: float = 1.0, protect: float = 0.5,
               f0_autotune: bool = False, f0_autotune_strength: float = 1.0,
               pitch_guidance: bool = True, input_f0: Optional[np.ndarray] = None,
-              proposed_pitch: bool = False, split_audio: bool = False,
-              clean_audio: bool = False, formant_shifting: bool = False,
-              post_process: bool = False) -> np.ndarray:
+              proposed_pitch: bool = False, proposed_pitch_threshold: float = 155.0,
+              split_audio: bool = False, clean_audio: bool = False,
+              formant_shifting: bool = False, post_process: bool = False,
+              f0_hop_length: int = 160) -> np.ndarray:
         """16 kHz mono float array -> converted audio at the model's rate.
-        index_rate applies only when the model has an index; an f0-less
-        model converts without pitch."""
+        f0_method: rmvpe, crepe, crepe-tiny, fcpe, dio, pm, harvest or
+        hybrid[a+b+...]; input_f0 (one f0 per 10 ms frame) replaces the
+        extraction; proposed_pitch shifts toward proposed_pitch_threshold Hz;
+        f0_hop_length is CREPE's analysis hop. index_rate applies only when
+        the model has an index; an f0-less model converts without pitch."""
         for flag, what in ((split_audio, "split_audio"), (clean_audio, "clean_audio"),
                            (formant_shifting, "formant_shifting"),
                            (post_process, "post_process")):
@@ -177,7 +181,8 @@ class RVC:
             pitch_guidance=pitch_guidance and self.cfg.model.use_f0,
             volume_envelope=volume_envelope, protect=protect, f0_autotune=f0_autotune,
             f0_autotune_strength=f0_autotune_strength, input_f0=input_f0,
-            proposed_pitch=proposed_pitch)
+            proposed_pitch=proposed_pitch, proposed_pitch_threshold=proposed_pitch_threshold,
+            f0_hop_length=f0_hop_length)
 
     def infer_file(self, audio_input: str, audio_output: str, export_format: str = "WAV",
                    **kwargs) -> str:

@@ -6,9 +6,11 @@ defaults, plus `--device`.
         --model_path model.pth --index_path model.index
 
 runs on the card; `--device cpu` runs the kernels' plain PyTorch versions
-on the host. Flags of paths that are not ported yet (other pitch methods,
-`--f0_file`, the effects, non-WAV export, ...) fail when set away from
-their defaults.
+on the host. `--f0_method` takes rmvpe, crepe, crepe-tiny, fcpe, dio, pm,
+harvest or hybrid[a+b+...]; `--f0_file` (one f0 per 10 ms frame, read with
+`np.loadtxt`) replaces the extraction. Flags of paths that are not ported
+yet (splitting, cleaning, formants, the effects, non-WAV export) fail when
+set away from their defaults.
 """
 
 from __future__ import annotations
@@ -19,8 +21,6 @@ import os
 # flags of paths not ported yet -> where ROADMAP lists them; each must stay
 # at its default
 _NOT_PORTED = {
-    "f0_method": "§2.4", "f0_file": "§2.4", "proposed_pitch": "§2.4",
-    "proposed_pitch_threshold": "§2.4", "hop_length": "§2.4",
     "split_audio": "§2.9", "clean_audio": "§2.9", "clean_strength": "§2.9",
     "export_format": "§2.9", "formant_shifting": "§2.9", "formant_qfrency": "§2.9",
     "formant_timbre": "§2.9", "post_process": "§2.9",
@@ -45,13 +45,23 @@ _NOT_PORTED.update({k: "§2.9" for k in _FX_FLAGS})
 _NOT_PORTED.update({k: "§2.9" for k, _ in _FX_VALUES})
 
 
+def _f0_method(value: str) -> str:
+    """A pitch method, hybrid[a+b+...] included (`rvc_tpu/cli.py`'s type)."""
+    from rvc_tpu_torch.pitch import PitchExtractor
+
+    if value in PitchExtractor.METHODS or (value.startswith("hybrid[") and value.endswith("]")):
+        return value
+    raise argparse.ArgumentTypeError(
+        f"invalid f0 method {value!r}: choose from {PitchExtractor.METHODS} or hybrid[a+b]")
+
+
 def _add_infer_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--input_path", required=True)
     p.add_argument("--output_path", required=True)
     p.add_argument("--model_path", "--pth_path", dest="model_path", required=True)
     p.add_argument("--index_path", default=None)
     p.add_argument("--pitch", type=float, default=0)
-    p.add_argument("--f0_method", default="rmvpe")
+    p.add_argument("--f0_method", default="rmvpe", type=_f0_method)
     p.add_argument("--index_rate", type=float, default=0.75)
     p.add_argument("--volume_envelope", type=float, default=1.0)
     p.add_argument("--protect", type=float, default=0.5)
@@ -96,9 +106,18 @@ def _check_ported(parser: argparse.ArgumentParser, args: argparse.Namespace) -> 
 
 
 def _infer_kwargs(args: argparse.Namespace) -> dict:
-    return dict(sid=args.sid, pitch=args.pitch, index_rate=args.index_rate,
-                volume_envelope=args.volume_envelope, protect=args.protect,
-                f0_autotune=args.f0_autotune, f0_autotune_strength=args.f0_autotune_strength)
+    input_f0 = None
+    if args.f0_file:
+        import numpy as np
+
+        input_f0 = np.loadtxt(args.f0_file, dtype=np.float32).ravel()
+    return dict(sid=args.sid, pitch=args.pitch, f0_method=args.f0_method,
+                index_rate=args.index_rate, volume_envelope=args.volume_envelope,
+                protect=args.protect, f0_autotune=args.f0_autotune,
+                f0_autotune_strength=args.f0_autotune_strength, input_f0=input_f0,
+                proposed_pitch=args.proposed_pitch,
+                proposed_pitch_threshold=args.proposed_pitch_threshold,
+                f0_hop_length=args.hop_length)
 
 
 def _load_rvc(args: argparse.Namespace):

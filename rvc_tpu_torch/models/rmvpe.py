@@ -1,6 +1,8 @@
 """RMVPE pitch detector (counterpart of `rvc_tpu/models/rmvpe.py`, canonical
 path): log-mel (B, T, 128) -> DeepUnet -> 3-channel conv -> BiGRU ->
 Linear -> 360-bin sigmoid salience, and `decode_salience` to f0 in Hz.
+`RMVPE` is the predictor over an `E2E`: audio -> log-mel (kernel K4 on the
+card) -> reflect pad to a multiple of 32 frames -> E2E -> decode.
 
 Module names follow the upstream torch E2E (`rvc/lib/predictors/RMVPE.py`):
 `unet.{encoder,intermediate,decoder}.layers.i`, `conv.j.conv.{0,1,3,4}`,
@@ -12,6 +14,8 @@ layout of the same function and has no counterpart here.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 from torch import nn
@@ -19,6 +23,7 @@ from torch.nn import functional as F
 
 from rvc_tpu_torch.models.layers import BatchNorm, Conv2d, ConvTranspose2d
 from rvc_tpu_torch.ops.gru import BiGRU
+from rvc_tpu_torch.ops.kernels.melspec import log_mel
 
 N_MELS = 128
 N_CLASS = 360
@@ -191,3 +196,42 @@ def decode_salience(hidden: torch.Tensor, thred: float = 0.03) -> torch.Tensor:
     cents = torch.where(hidden.amax(-1) > thred, cents, torch.zeros_like(cents))
     f0 = 10.0 * 2.0 ** (cents / 1200.0)
     return torch.where(cents > 0, f0, torch.zeros_like(f0))
+
+
+class RMVPE:
+    """audio -> f0, as the reference's `RMVPE` predictor. model: an `E2E`
+    (kept where it lives: the pipeline passes its own); None builds the
+    full-size one on the host from torch seed `seed` and moves it to
+    `device` (the CPU when None)."""
+
+    def __init__(self, model: Optional[E2E] = None, seed: int = 0, device=None):
+        if model is None:
+            with torch.random.fork_rng(devices=[]):
+                torch.manual_seed(seed)
+                model = E2E()
+            model = model.to(device or "cpu").eval().requires_grad_(False)
+        self.model = model
+        self.device = next(model.parameters()).device
+
+    @staticmethod
+    def mel(audio: torch.Tensor) -> torch.Tensor:
+        """(B, T) 16 kHz -> (B, 1 + T // 160, 128) log-mel (HTK, 30-8000 Hz): K4."""
+        return log_mel(audio, 1024, 160, N_MELS, 16000, 30.0, 8000.0, htk=True)
+
+    def mel2hidden(self, mel: torch.Tensor) -> torch.Tensor:
+        """(B, T, 128) -> salience (B, T, 360), through a reflect pad of the
+        frames to a multiple of 32."""
+        n_frames = mel.shape[1]
+        pad = 32 * ((n_frames - 1) // 32 + 1) - n_frames
+        if pad:
+            mel = F.pad(mel.transpose(1, 2), (0, pad), mode="reflect").transpose(1, 2)
+        return self.model(mel)[:, :n_frames]
+
+    def infer_from_audio(self, audio, thred: float = 0.03) -> np.ndarray:
+        """audio (T,) or (B, T) 16 kHz -> f0 per frame (hop 160), numpy."""
+        audio = torch.as_tensor(np.asarray(audio, dtype=np.float32))
+        squeeze = audio.dim() == 1
+        with torch.inference_mode():
+            x = (audio[None] if squeeze else audio).to(self.device)
+            f0 = decode_salience(self.mel2hidden(self.mel(x)), thred).cpu().numpy()
+        return f0[0] if squeeze else f0

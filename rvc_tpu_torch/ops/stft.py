@@ -3,8 +3,9 @@
 `log_mel_spectrogram` is the plain PyTorch version of kernel K4
 (`ops/kernels/melspec.py`): RMVPE's center=True log-mel with a periodic
 Hann window, an HTK mel scale with Slaney area normalisation and
-log(clamp 1e-5). The mel filterbank is a numpy copy of the reference's
-(same formulas as librosa.filters.mel).
+log(clamp 1e-5). `stft` is the complex STFT under it, which FCPE's
+front end also takes (center=False). The mel filterbank is a numpy copy
+of the reference's (same formulas as librosa.filters.mel).
 """
 
 from __future__ import annotations
@@ -27,6 +28,24 @@ def hann_window(win_length: int, dtype=torch.float32,
 def frame_signal(y: torch.Tensor, frame_length: int, hop_length: int) -> torch.Tensor:
     """(B, T) -> (B, n_frames, frame_length), n_frames = 1 + (T - frame_length)//hop."""
     return y.unfold(-1, frame_length, hop_length)
+
+
+def stft(y: torch.Tensor, n_fft: int, hop_length: int, win_length: Optional[int] = None, *,
+         window: Optional[torch.Tensor] = None, center: bool = False) -> torch.Tensor:
+    """Complex STFT. (B, T) -> (B, n_frames, n_fft // 2 + 1) complex64: a
+    periodic Hann window (zero-padded to n_fft when win_length < n_fft),
+    and with center=True a reflect pad of n_fft // 2 on both sides
+    (torch.stft's framing)."""
+    if win_length is None:
+        win_length = n_fft
+    if window is None:
+        window = hann_window(win_length, y.dtype, y.device)
+    if win_length < n_fft:
+        lpad = (n_fft - win_length) // 2
+        window = F.pad(window, (lpad, n_fft - win_length - lpad))
+    if center:
+        y = F.pad(y[:, None], (n_fft // 2, n_fft // 2), mode="reflect")[:, 0]
+    return torch.fft.rfft(frame_signal(y, n_fft, hop_length) * window, n=n_fft, dim=-1)
 
 
 def _hz_to_mel(f, htk: bool):
@@ -81,13 +100,7 @@ def log_mel_spectrogram(y: torch.Tensor, n_fft: int, n_mels: int,
                         fmin: float = 0.0, fmax: Optional[float] = None,
                         htk: bool = False, clamp: float = 1e-5) -> torch.Tensor:
     """center=True log-mel. (B, T) -> (B, 1 + T // hop_length, n_mels)."""
-    window = hann_window(win_length, y.dtype, y.device)
-    if win_length < n_fft:
-        lpad = (n_fft - win_length) // 2
-        window = F.pad(window, (lpad, n_fft - win_length - lpad))
-    y = F.pad(y[:, None], (n_fft // 2, n_fft // 2), mode="reflect")[:, 0]
-    frames = frame_signal(y, n_fft, hop_length) * window
-    mag = torch.fft.rfft(frames, n=n_fft, dim=-1).abs()
+    mag = stft(y, n_fft, hop_length, win_length, center=True).abs()
     fb = torch.from_numpy(mel_filterbank(sample_rate, n_fft, n_mels, fmin, fmax,
                                          htk=htk)).to(y.device)
     return torch.log(torch.clamp(mag @ fb.T, min=clamp))

@@ -2,17 +2,19 @@
 `rvc_tpu/utils/weights.py`).
 
 Upstream torch checkpoints (`.pth`): the port's parameter names are the
-upstream ones, so `synthesizer_from_pth` / `hubert_from_pth` fuse the
-weight norm (both namings) and keep the keys the port has.
+upstream ones, so `synthesizer_from_pth` / `hubert_from_pth` /
+`fcpe_from_pth` fuse the weight norm (both namings) and keep the keys the
+port has; `crepe_from_pth` takes a torchcrepe state dict as it is.
 `export_pth` writes the upstream inference format.
 
 Native checkpoints (`.safetensors` with a `.json` config sidecar) hold
 `rvc_tpu`'s flat '/'-joined parameter paths: `load_params` / `save_params`
 read and write the file format (no `safetensors` package needed), and
-`synthesizer_from_jax` / `hubert_from_jax` / `rmvpe_from_jax` map such a
-tree (weight norm already fused) onto the port's state dicts, in torch
-layouts: conv weights (K, Cin, Cout) -> (Cout, Cin, K), transposed convs
-(K, Cin, Cout) -> (Cin, Cout, K), and the 2-D forms alike.
+`synthesizer_from_jax` / `hubert_from_jax` / `rmvpe_from_jax` /
+`crepe_from_jax` / `fcpe_from_jax` map such a tree (weight norm already
+fused) onto the port's state dicts, in torch layouts: conv weights
+(K, Cin, Cout) -> (Cout, Cin, K), transposed convs (K, Cin, Cout) ->
+(Cin, Cout, K), and the 2-D forms alike.
 """
 
 from __future__ import annotations
@@ -167,10 +169,61 @@ def rmvpe_from_jax(params: Mapping, batch_stats: Mapping) -> Dict[str, torch.Ten
     """`rvc_tpu` RMVPE E2E (params, batch_stats) -> `models.rmvpe.E2E` state dict."""
     flat = {**flatten_tree(params), **flatten_tree(batch_stats)}
     fc_index = 1 if "gru_fwd_weight_ih" in flat else 0
-    out = _convert(flat, _rmvpe_rules(fc_index), "rmvpe")
+    return _with_bn_counters(_convert(flat, _rmvpe_rules(fc_index), "rmvpe"))
+
+
+def _with_bn_counters(out: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Add the `num_batches_tracked` buffer of every BatchNorm in `out`."""
     for key in [k for k in out if k.endswith(".running_mean")]:
         out[key[: -len("running_mean")] + "num_batches_tracked"] = torch.tensor(0)
     return out
+
+
+_CREPE_RULES: Sequence[Rule] = (
+    (r"conv(\d)/weight", r"conv\1.weight", _conv2d),
+    (r"conv(\d)/bias", r"conv\1.bias", None),
+    (r"conv(\d)_BN/(weight|bias|running_mean|running_var)", r"conv\1_BN.\2", None),
+    (r"classifier/(weight|bias)", r"classifier.\1", None),
+)
+
+
+def crepe_from_jax(params: Mapping, batch_stats: Mapping) -> Dict[str, torch.Tensor]:
+    """`rvc_tpu` CREPEModel (params, batch_stats) -> `models.crepe.CREPEModel`
+    state dict (torchcrepe's keys)."""
+    flat = {**flatten_tree(params), **flatten_tree(batch_stats)}
+    return _with_bn_counters(_convert(flat, _CREPE_RULES, "crepe"))
+
+
+_LAYER = r"decoder_layers_(\d+)/"
+_FCPE_RULES: Sequence[Rule] = (
+    (r"stack_conv1/weight", "stack.0.weight", _conv1d),
+    (r"stack_conv1/bias", "stack.0.bias", None),
+    (r"stack_gn_(weight|bias)", r"stack.1.\1", None),
+    (r"stack_conv2/weight", "stack.3.weight", _conv1d),
+    (r"stack_conv2/bias", "stack.3.bias", None),
+    (_LAYER + r"norm/(weight|bias)", r"decoder._layers.\1.norm.\2", None),
+    (_LAYER + r"attn/to_(q|k|v|out)/(weight|bias)", r"decoder._layers.\1.attn.to_\2.\3", None),
+    (_LAYER + r"attn/projection_matrix",
+     r"decoder._layers.\1.attn.fast_attention.projection_matrix", None),
+    (_LAYER + r"conformer/ln/(weight|bias)", r"decoder._layers.\1.conformer.net.0.\2", None),
+    (_LAYER + r"conformer/conv_in/weight", r"decoder._layers.\1.conformer.net.2.weight",
+     _conv1d),
+    (_LAYER + r"conformer/conv_in/bias", r"decoder._layers.\1.conformer.net.2.bias", None),
+    (_LAYER + r"conformer/depthwise/weight", r"decoder._layers.\1.conformer.net.4.conv.weight",
+     _conv1d),
+    (_LAYER + r"conformer/depthwise/bias", r"decoder._layers.\1.conformer.net.4.conv.bias",
+     None),
+    (_LAYER + r"conformer/conv_out/weight", r"decoder._layers.\1.conformer.net.6.weight",
+     _conv1d),
+    (_LAYER + r"conformer/conv_out/bias", r"decoder._layers.\1.conformer.net.6.bias", None),
+    (r"(norm|dense_out)/(weight|bias)", r"\1.\2", None),
+)
+
+
+def fcpe_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """`rvc_tpu` FCPEModel params -> `models.fcpe.FCPEModel` state dict
+    (the upstream `FCPE.py` keys)."""
+    return _convert(flatten_tree(params), _FCPE_RULES, "fcpe")
 
 
 # ---------------------------------------------------------------------------
@@ -263,6 +316,35 @@ def hubert_from_pth(sd: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         if m:
             out[m.group(1) or m.group(2)] = v
     return _tensors(out)
+
+
+def crepe_from_pth(sd: Mapping) -> Dict[str, torch.Tensor]:
+    """A torchcrepe state dict (its keys are `models.crepe.CREPEModel`'s)
+    -> the port's state dict, floating tensors cast to float32."""
+    out = {}
+    for k, v in sd.items():
+        if k != "__meta__":
+            v = torch.as_tensor(np.asarray(v))
+            out[k] = v.float() if v.is_floating_point() else v
+    return out
+
+
+# the keys of upstream `FCPE.py`'s model that the port has (the reference's
+# `_FCPE_RULES`); its cent tables and masks are buffers the port computes
+_FCPE_KEYS = re.compile(
+    r"stack\.[013]\.(?:weight|bias)"
+    r"|decoder\._layers\.\d+\.(?:norm\.(?:weight|bias)|attn\.to_(?:q|k|v|out)\.(?:weight|bias)"
+    r"|attn\.fast_attention\.projection_matrix"
+    r"|conformer\.net\.(?:0|2|4\.conv|6)\.(?:weight|bias))"
+    r"|(?:norm|dense_out)\.(?:weight|bias)")
+
+
+def fcpe_from_pth(sd: Mapping) -> Dict[str, torch.Tensor]:
+    """The "model" entry of an upstream `fcpe.pt` -> `models.fcpe.FCPEModel`
+    state dict: dense_out's weight norm fused in float32, the keys the port
+    has kept."""
+    fused = fuse_weight_norm({k: np.asarray(v) for k, v in sd.items() if k != "__meta__"})
+    return _tensors({k: v for k, v in fused.items() if _FCPE_KEYS.fullmatch(k)})
 
 
 # the layers upstream keeps under weight norm (`rvc/lib/algorithm`)

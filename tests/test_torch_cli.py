@@ -1,6 +1,7 @@
 """`rvc_tpu_torch.cli` on the CPU: `infer` and `batch_infer` with a `.pth`
 and an `.index` that the JAX package wrote, against `RVC(...).infer_file`
-on the same files. The voice model is narrow but takes HuBERT's 768-wide
+on the same files, with the pitch methods' flags too. The voice model is
+narrow but takes HuBERT's 768-wide
 features, as upstream v2 models do; HuBERT and RMVPE are the seeded random
 full-size modules that `RVC` builds when no checkpoint is found."""
 
@@ -86,9 +87,44 @@ def test_batch_infer_equals_the_api(files, tmp_path, capsys):
         np.testing.assert_array_equal(got, ref)
 
 
-@pytest.mark.parametrize("flags", [["--f0_method", "crepe"], ["--f0_file", "f0.txt"],
-                                   ["--split_audio"], ["--export_format", "MP3"],
-                                   ["--reverb"], ["--gain_db", "3"], ["--proposed_pitch"]],
+@pytest.mark.parametrize("flags,kwargs", [
+    (["--f0_method", "crepe-tiny"], dict(f0_method="crepe-tiny")),
+    (["--f0_method", "crepe-tiny", "--hop_length", "320"],
+     dict(f0_method="crepe-tiny", f0_hop_length=320)),
+    (["--f0_file", "f0.txt"], dict(input_f0="f0.txt")),
+    (["--proposed_pitch", "--proposed_pitch_threshold", "200"],
+     dict(proposed_pitch=True, proposed_pitch_threshold=200.0)),
+], ids=["f0_method", "hop_length", "f0_file", "proposed_pitch"])
+def test_pitch_flags_equal_the_api(files, tmp_path, flags, kwargs):
+    """The staged path's pitch flags convert on the CPU, as the API does
+    with the same arguments. The f0 file is read with np.loadtxt and
+    flattened (one value per 10 ms frame, here 6 rows of 10)."""
+    f0 = (150.0 + 20.0 * np.sin(np.arange(60) / 7.0)).reshape(6, 10)
+    np.savetxt(tmp_path / "f0.txt", f0)
+    flags = [str(tmp_path / f) if f == "f0.txt" else f for f in flags]
+    if "input_f0" in kwargs:
+        kwargs = dict(input_f0=np.loadtxt(tmp_path / "f0.txt", dtype=np.float32).ravel())
+    out = tmp_path / "cli.wav"
+    main(["infer", "--input_path", str(files / "in" / "a.wav"), "--output_path", str(out),
+          *_model_args(files), *flags])
+    _api(files).infer_file(str(files / "in" / "a.wav"), str(tmp_path / "api.wav"), **kwargs)
+    got, sr = audio_utils.load_wav(str(out))
+    ref, _ = audio_utils.load_wav(str(tmp_path / "api.wav"))
+    assert sr == 32000 and got.shape == (int(0.6 * 32000),) and np.isfinite(got).all()
+    np.testing.assert_array_equal(got, ref)
+
+
+def test_unknown_f0_method_fails(files, tmp_path, capsys):
+    with pytest.raises(SystemExit) as exit_info:
+        main(["infer", "--input_path", str(files / "in" / "a.wav"), "--output_path",
+              str(tmp_path / "o.wav"), *_model_args(files), "--f0_method", "bogus"])
+    assert exit_info.value.code == 2
+    assert "invalid f0 method 'bogus'" in capsys.readouterr().err
+    assert not (tmp_path / "o.wav").exists()
+
+
+@pytest.mark.parametrize("flags", [["--split_audio"], ["--export_format", "MP3"],
+                                   ["--reverb"], ["--gain_db", "3"]],
                          ids=lambda f: f[0])
 def test_flags_not_ported_fail(files, tmp_path, flags, capsys):
     with pytest.raises(SystemExit):

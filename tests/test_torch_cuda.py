@@ -163,6 +163,75 @@ def test_ivf_search_and_blend(dev, nprobe):
     torch.testing.assert_close(got.cpu(), ref, rtol=1e-4, atol=1e-5)
 
 
+def _tone(seconds: float) -> "np.ndarray":
+    import numpy as np
+
+    t = np.arange(int(seconds * 16000)) / 16000
+    return (0.4 * np.sin(2 * np.pi * (140 * t + 40 * t * t))).astype(np.float32)
+
+
+@pytest.mark.parametrize("variant,frames", [("tiny", 400), ("full", 24)])
+def test_crepe_frames_match_the_host(dev, variant, frames):
+    """CREPE's network (cuDNN convs, float32, TF32 off) against the host, on
+    normalized frames: the JAX test's bar for CREPE against torchcrepe."""
+    from rvc_tpu_torch.models.crepe import CREPE, frame_audio
+
+    crepe = CREPE(variant, device=dev)
+    x = frame_audio(torch.from_numpy(_tone(frames / 100))[None])[0][:frames]
+    with torch.inference_mode():
+        got = crepe.model(x.to(dev)).cpu()
+        ref = crepe.model.cpu()(x)
+    torch.testing.assert_close(got, ref, rtol=2e-3, atol=2e-4)
+
+
+def test_fcpe_full_width_matches_the_host(dev):
+    """FCPE 12 x 512 on a 2 s clip's log-mel, card against host. The clip
+    carries broadband noise, so no mel band holds only the two FFTs'
+    float32 round-off."""
+    from rvc_tpu_torch.models.fcpe import FCPE
+
+    fcpe = FCPE(device=dev)
+    noise = 0.05 * torch.randn(32000, generator=torch.Generator().manual_seed(0))
+    audio = (torch.from_numpy(_tone(2.0)) + noise)[None]
+    with torch.inference_mode():
+        mel = fcpe.mel(audio)
+        torch.testing.assert_close(fcpe.mel(audio.to(dev)).cpu(), mel, rtol=1e-4, atol=1e-4)
+        got = fcpe.model(mel.to(dev)).cpu()
+        ref = fcpe.model.cpu()(mel)
+    torch.testing.assert_close(got, ref, rtol=2e-3, atol=2e-4)
+
+
+@pytest.mark.parametrize("method", ["crepe-tiny", "fcpe", "rmvpe", "hybrid[rmvpe+pm]"])
+def test_extractor_keeps_its_models_on_the_card(dev, method):
+    import numpy as np
+
+    from rvc_tpu_torch.pitch import PitchExtractor
+
+    ext = PitchExtractor(method, device="cuda")
+    for sub in ext._sub or [ext]:
+        if sub._model is not None:
+            assert next(sub._model.model.parameters()).is_cuda
+    f0 = ext.extract(_tone(1.0))
+    assert isinstance(f0, np.ndarray) and f0.dtype == np.float32 and f0.shape[0] in (100, 101)
+
+
+def test_staged_rmvpe_launches_k4_once(dev):
+    """proposed_pitch takes RMVPE down the staged path: one log-mel launch
+    for the one chunk, K1-K3 as on every path; crepe-tiny launches no K4."""
+    from rvc_tpu_torch.api import RVC
+    from rvc_tpu_torch.configs import get_config
+    from rvc_tpu_torch.ops.kernels import reset_launches
+
+    rvc = RVC(config=get_config(32000, model_n_layers=1), device="cuda")
+    for kw, mels in ((dict(proposed_pitch=True), 1), (dict(f0_method="crepe-tiny"), 0)):
+        reset_launches()
+        out = rvc.infer(_tone(1.0), **kw)
+        torch.cuda.synchronize()
+        assert out.shape == (32000,) and LAUNCHES["log_mel"] == mels, (kw, dict(LAUNCHES))
+        assert min(LAUNCHES["rel_attention"], LAUNCHES["resblock_group"],
+                   LAUNCHES["resblock_chain"]) > 0
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):
         KR.resblock_chain(torch.zeros((1, 10, 48), device=dev),

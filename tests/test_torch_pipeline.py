@@ -114,11 +114,8 @@ def test_f0less_staged_path_matches_jax(indexes, monkeypatch, with_index):
 
 
 @pytest.mark.parametrize("kw,error", [
-    (dict(f0_method="crepe"), NotImplementedError),
-    (dict(input_f0=np.ones(50, np.float32)), NotImplementedError),
-    (dict(proposed_pitch=True), NotImplementedError),
     (dict(pitch_guidance=False), ValueError),
-], ids=["f0_method", "input_f0", "proposed_pitch", "f0-model-without-pitch"])
+], ids=["f0-model-without-pitch"])
 def test_paths_not_ported_raise(pipelines, kw, error):
     with pytest.raises(error):
         pipelines[1].pipeline(_clip(0.3), **kw)
