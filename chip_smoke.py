@@ -14,7 +14,9 @@ Phases, one JSON line each (a `kernel` line per kernel call):
   kernel    every kernel-wrapper call of one more conversion of the clip,
             recorded with its inputs (`ops.kernels.record_calls`) and
             replayed: the kernel against its plain PyTorch version on the
-            same inputs (TF32 off), max_abs / rel_l2 / tolerance, ms for
+            same inputs (TF32 off; K3 and K4 against the plain version run
+            in float64, and where the float32 plain version misses the bar
+            there, within twice its distance), max_abs / rel_l2 / tolerance, ms for
             both (CUDA events around one call, the host's launch work
             included; the median of 5 runs after warmup), `ms_queued` and
             `plain_ms_queued` for both (10 calls queued back to back, over
@@ -64,9 +66,31 @@ Phases, one JSON line each (a `kernel` line per kernel call):
             fcpe (2 s) f0 on the card against the host (voicing >= 99%,
             median |cents| < 1); the staged crepe-tiny waveform on a 2 s
             clip, GPU vs CPU corr > 0.99
+  postfx    `RVC.infer` with split_audio, clean_audio, formant_shifting
+            (timbre 1.2), post_process and all ten effects on the 13.5 s clip
+            with two 0.8 s silences cut in: wall ms, the segments, the output
+            length, each host part alone (formant shift, split, merge, noise
+            reduction, the FX chain and each effect; host clock), and FLAC /
+            MP3 export through `encode_audio` (written and read back where
+            soundfile or ffmpeg is on the machine, else its RuntimeError)
+  vocoders  the 48 kHz model with the MRF HiFi-GAN, then RefineGAN decoder
+            (full width, seed 0), written as `.safetensors` + `.json` and
+            loaded through `RVC(model_path=...)`: wall ms, launches (K1 = K2
+            = 0, K3 = 6, K4 = 1), the decoder alone (CUDA events) and per
+            part, its FLOP and float32 bound, GPU-vs-CPU corr on a 2 s clip,
+            and the audio-rate sine bank's float32 drift from float64
+  longform  `BatchConverter.convert_long_batch` on the main path's model:
+            64 x 60 s utterances in 10 s windows with 1 s of context, 8 a
+            dispatch (first call, wall, audio-seconds per second, peak
+            memory, launches per dispatch: K1 27, K2 9, K3 6, K4 1); the
+            first 16 at 1, 8 and 16 a dispatch; then (`longform_b8`) one
+            B = 8 dispatch's stages and every kernel call held against its
+            plain version (K3 / K4 with their grid), and one window at B = 8
+            against B = 1, noise off
 Then the `kernels` summary line (per kernel: the sums over its calls; the
-launches of each path's run beside the main path's, `staged_crepe` and
-`staged_rmvpe` among them), the card line, and
+launches of each path's run beside the main path's, `staged_crepe`,
+`staged_rmvpe`, `postfx`, `mrf`, `refinegan` and `longform` among them),
+the card line, and
 last {"ok": true, "device": {...}}. Any failed check raises: the exit code
 is non-zero and the last line is not printed. Without a CUDA device, or
 run outside the repository, it fails before printing any result.
@@ -215,6 +239,33 @@ def compare(got, ref, atol: float, rtol: float, what: str, min_corr=None) -> dic
     return out
 
 
+def compare_exact(got, plain32, exact, atol: float, rtol: float, what: str) -> dict:
+    """A float32 kernel against its plain version run in float64 (`exact`):
+    |d| <= atol + rtol |exact| at every element. Where the float32 plain
+    version misses that bar too (inputs of large magnitude, bands at a
+    clamp), the kernel is held as K1/K2 are: no further from float64 than
+    twice the float32 plain version, in max |d| and in rel_l2. Raises on a
+    miss."""
+    got, plain32 = got.double(), plain32.double()
+    bar = atol + rtol * exact.abs()
+    d, d_plain = (got - exact).abs(), (plain32 - exact).abs()
+    out = {"max_abs": float(d.max()), "rel_l2": rel_l2(got, exact),
+           "tol": f"|d| <= {atol} + {rtol}|ref| against float64; where the float32 plain "
+                  "version misses it, max |d| and rel_l2 <= 2 x the plain version's",
+           "excess": float((d - bar).max()),
+           "plain_f32_excess": float((d_plain - bar).max()),
+           "plain_f32_vs_f64_max_abs": float(d_plain.max()),
+           "plain_f32_vs_f64_rel_l2": rel_l2(plain32, exact),
+           "vs_plain_f32_max_abs": float((got - plain32).abs().max())}
+    within = out["excess"] <= 0 or (
+        out["plain_f32_excess"] > 0
+        and out["max_abs"] <= 2 * out["plain_f32_vs_f64_max_abs"]
+        and out["rel_l2"] <= 2 * out["plain_f32_vs_f64_rel_l2"])
+    if not (math.isfinite(out["max_abs"]) and within):
+        raise AssertionError(f"{what}: kernel disagrees with its plain version ({out})")
+    return out
+
+
 def check_emulation(got, plain, args, kwargs, x, bar: float, what: str) -> dict:
     """K1/K2 against the plain version's bf16 emulation run in float64 (exact
     sums), on the output and on its update (output - x), which the residual
@@ -334,13 +385,22 @@ def check_calls(calls: list) -> list:
         bound_args.apply_defaults()
         a = bound_args.arguments
         got, ref = fn(*args, **kwargs), plain(*args, **kwargs)
-        if name == "rel_attention":  # rows past the length differ by design
-            T = a["q"].shape[2]
-            valid = torch.arange(T, device=got.device)[None, :] < a["key_lens"].to(got.device)[:, None]
-            got, ref = got * valid[:, None, :, None], ref * valid[:, None, :, None]
         desc = describe(a)
         what = f"{name} {desc}"
-        cmp = compare(got, ref, spec["atol"], spec["rtol"], what, spec.get("min_corr"))
+        if name in ("rel_attention", "log_mel"):
+            # float32 kernels, held against their plain version run in float64:
+            # two float32 runs can each miss the bar against exact
+            # arithmetic, and then differ from each other by twice it
+            exact = plain(*cast(args, torch.float64), **cast(kwargs, torch.float64))
+            if name == "rel_attention":  # rows past the length differ by design
+                T = a["q"].shape[2]
+                valid = (torch.arange(T, device=got.device)[None, :]
+                         < a["key_lens"].to(got.device)[:, None])[:, None, :, None]
+                got, ref, exact = got * valid, ref * valid, exact * valid
+            cmp = compare_exact(got, ref, exact, spec["atol"], spec["rtol"], what)
+            del exact
+        else:
+            cmp = compare(got, ref, spec["atol"], spec["rtol"], what, spec.get("min_corr"))
         if "emu_rel_l2" in spec:
             cmp.update(check_emulation(got, plain, args, kwargs, a["x"],
                                        spec["emu_rel_l2"], what))
@@ -489,9 +549,11 @@ def phase_stages(rvc) -> None:
     emit({"phase": "stages", "clip_s": CLIP_S, "host_prep_ms": host_ms, "device_ms": st})
 
 
-def timed_conversion(rvc, clip, **kwargs) -> tuple:
+def timed_conversion(rvc, clip, samples=None, **kwargs) -> tuple:
     """(output, wall ms, launches) of one conversion after a warm call, the
-    launch counts set to 0 just before it and read just after."""
+    launch counts set to 0 just before it and read just after; the output
+    must be finite and `samples` long (the clip's length at the model's
+    rate when None)."""
     import numpy as np
     import torch
 
@@ -505,7 +567,7 @@ def timed_conversion(rvc, clip, **kwargs) -> tuple:
     torch.cuda.synchronize()
     wall_ms = 1e3 * (time.perf_counter() - t0)
     launches = dict(LAUNCHES)
-    want = int(CLIP_S * rvc.cfg.data.sample_rate)
+    want = samples or int(len(clip) * rvc.cfg.data.sample_rate / 16000)
     if len(out) != want or not np.isfinite(out).all():
         raise AssertionError(f"output: {len(out)} samples (want {want}), "
                              f"finite={bool(np.isfinite(out).all())}")
@@ -895,6 +957,510 @@ def phase_pitch(rvc, work: str) -> dict:
     return by_path
 
 
+# ---------------------------------------------------------------------------
+# postfx: formant shift, split, noise reduction, the ten effects, export
+# ---------------------------------------------------------------------------
+
+SILENCES_S = ((4.0, 4.8), (9.0, 9.8))     # cut into the 13.5 s clip for the split
+POSTFX = dict(split_audio=True, clean_audio=True, clean_strength=0.5,
+              formant_shifting=True, formant_qfrency=1.0, formant_timbre=1.2,
+              post_process=True)
+# all ten effects on, at values that change the signal
+FX_ALL = dict(reverb=True, pitch_shift=True, pitch_shift_semitones=2.0, limiter=True,
+              limiter_threshold=-8.0, gain=True, gain_db=3.0, distortion=True,
+              distortion_gain=12.0, chorus=True, bitcrush=True, bitcrush_bit_depth=12.0,
+              clipping=True, clipping_threshold=-1.0, compressor=True,
+              compressor_threshold=-18.0, compressor_ratio=3.0, delay=True,
+              delay_seconds=0.25, delay_feedback=0.3)
+
+
+def gapped_clip():
+    """The 13.5 s clip with SILENCES_S cut to zero, so the split finds
+    several non-silent intervals."""
+    clip = test_clip(CLIP_S, SEED)
+    for a, b in SILENCES_S:
+        clip[int(a * 16000):int(b * 16000)] = 0.0
+    return clip
+
+
+def export_check(audio, sr: int, work: str, fmt: str) -> dict:
+    """Export `audio` as fmt through `encode_audio`. Where soundfile or the
+    ffmpeg binary is on the machine the file must be written and read back
+    (soundfile may refuse a format, and then ffmpeg must be absent); where
+    neither is, the RuntimeError must be raised."""
+    import importlib.util
+    import shutil
+
+    import numpy as np
+
+    from rvc_tpu_torch.utils import audio as audio_utils
+
+    has = {"soundfile": importlib.util.find_spec("soundfile") is not None,
+           "ffmpeg": shutil.which("ffmpeg") is not None}
+    out = {"format": fmt, "encoders_present": has}
+    try:
+        path = audio_utils.encode_audio(audio, sr, os.path.join(work, "postfx"), fmt)
+    except RuntimeError as e:
+        if has["ffmpeg"]:
+            raise
+        return {**out, "written": False, "raised": "RuntimeError", "message": str(e)[:160]}
+    if has["soundfile"]:
+        import soundfile as sf
+
+        back, back_sr = sf.read(path, dtype="float32")
+    else:
+        wav = path + ".wav"
+        subprocess.run([shutil.which("ffmpeg"), "-y", "-loglevel", "error", "-i", path, wav],
+                       check=True, timeout=120)
+        back, back_sr = audio_utils.load_wav(wav)
+    back = audio_utils.to_mono(np.asarray(back, dtype=np.float32))
+    if back_sr != sr or not len(back) >= 0.95 * len(audio) or not np.isfinite(back).all():
+        raise AssertionError(f"{fmt} read back as {len(back)} samples at {back_sr} Hz "
+                             f"(wrote {len(audio)} at {sr})")
+    return {**out, "written": True, "bytes": os.path.getsize(path), "read_back_samples": len(back)}
+
+
+def phase_postfx(rvc, work: str) -> dict:
+    """`RVC.infer` with every flag of the rest of `infer` on the gapped clip:
+    the wall, each host part alone, and FLAC / MP3 export. Returns the
+    timed run's launches."""
+    import numpy as np
+
+    from rvc_tpu_torch.realtime.fx import build_fx_chain
+    from rvc_tpu_torch.utils.formant import formant_shift
+    from rvc_tpu_torch.utils.noise import reduce_noise
+    from rvc_tpu_torch.utils.split_audio import merge_audio, split_silence_nonsilent
+
+    sr = rvc.cfg.data.sample_rate
+    rvc.pipeline.source_noise = True
+    clip = gapped_clip()
+    want = int(len(clip) * sr / 16000) + 1           # merge_audio's length
+    out, wall_ms, launches = timed_conversion(rvc, clip, samples=want, **POSTFX, **FX_ALL)
+    missing = [k for k, n in launches.items() if n <= 0]
+    if missing:
+        raise AssertionError(f"the postfx path never launched {missing}")
+
+    # each host part alone, on what it sees in the conversion
+    host = {}
+    t0 = time.perf_counter()
+    shifted = formant_shift(clip, 16000, POSTFX["formant_qfrency"], POSTFX["formant_timbre"])
+    host["formant_shift"] = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    intervals, segments = split_silence_nonsilent(shifted, 16000)
+    host["split"] = 1e3 * (time.perf_counter() - t0)
+    converted = [rvc.infer(seg) for seg in segments]
+    t0 = time.perf_counter()
+    merged = merge_audio(intervals, converted, len(shifted), 16000, sr)
+    host["merge"] = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    cleaned = reduce_noise(merged, sr, POSTFX["clean_strength"])
+    host["reduce_noise"] = 1e3 * (time.perf_counter() - t0)
+    chain = build_fx_chain(**FX_ALL)
+    t0 = time.perf_counter()
+    final = chain(cleaned, sr)
+    host["fx_chain"] = 1e3 * (time.perf_counter() - t0)
+    effects, x = {}, cleaned
+    for fx in chain.effects:
+        t0 = time.perf_counter()
+        x = np.asarray(fx(x, sr), dtype=np.float32)
+        effects[fx.__qualname__.split(".")[0]] = 1e3 * (time.perf_counter() - t0)
+    if len(segments) < 2 or len(chain.effects) != 10:
+        raise AssertionError(f"{len(segments)} segments, {len(chain.effects)} effects")
+    emit({"phase": "postfx", "clip_s": CLIP_S, "silences_s": SILENCES_S,
+          "flags": {**POSTFX, **FX_ALL}, "wall_ms": wall_ms,
+          "realtime_x": CLIP_S * 1e3 / wall_ms, "segments": len(segments),
+          "segment_s": [round((e - s) / 16000, 3) for s, e in intervals],
+          "out_samples": len(out), "launches": launches, "host_ms": host,
+          "host_ms_split_and_merge": host["split"] + host["merge"], "effect_ms": effects,
+          "parts_vs_timed_run_max_abs": float(np.abs(final - out).max()),
+          "export": [export_check(out, sr, work, fmt) for fmt in ("FLAC", "MP3")]})
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# vocoders: the MRF HiFi-GAN and RefineGAN at full width
+# ---------------------------------------------------------------------------
+
+VOCODERS = {"mrf": "MRF HiFi-GAN", "refinegan": "RefineGAN"}
+# plain torch decoders: K1/K2 are not reached, as in the reference
+VOCODER_LAUNCHES = {"resblock_group": 0, "resblock_chain": 0, "rel_attention": 6, "log_mel": 1}
+
+
+def decoder_inputs(rvc, clip) -> tuple:
+    """The decoder's inputs (z, f0, g) for the clip's one chunk, as the
+    fused path makes them."""
+    import numpy as np
+    import torch
+    from torch.nn import functional as F
+
+    from rvc_tpu_torch.pipelines.offline import coarse_f0_torch, upsample_protect
+    from rvc_tpu_torch.utils import audio as audio_utils
+
+    p, synth = rvc.pipeline, rvc.pipeline.synthesizer
+    chunk = np.pad(audio_utils.highpass_filter(clip, 16000, 48.0, 5), (p.t_pad, p.t_pad),
+                   mode="reflect")
+    with torch.inference_mode():
+        audio = p._upload(chunk)
+        f0 = p.f0(audio, 0.0, 0.0)
+        feats, _ = p._features(audio, audio.shape[1] // 160, None, 0.0)
+        t_feat = feats.shape[1] * 2
+        f0 = F.pad(f0, (0, max(0, t_feat - f0.shape[1])))[:, :t_feat]
+        phone = upsample_protect(feats, feats, f0, 0.5)
+        lengths = p._one(len(chunk) // 160)
+        g = synth.emb_g(p._one(0))[:, None, :]
+        m_p, _, x_mask = synth.enc_p(phone, coarse_f0_torch(f0), lengths)
+        z = synth.flow(m_p * x_mask, x_mask, g=g) * x_mask
+    return z, f0, g
+
+
+def decoder_work(dec, z, f0, g) -> tuple:
+    """(FLOP, bytes) of one decoder call: the multiply-adds of every conv,
+    transposed conv and linear layer (forward hooks) and of RefineGAN's
+    decimation filters; the inputs, weights and waveform each moved once.
+    Elementwise work (sines, activations) is not counted."""
+    import torch
+    from torch import nn
+
+    from rvc_tpu_torch.models.generators_extra import RefineGANGenerator
+
+    flop = [0]
+
+    def hook(m, inputs, out):
+        x = inputs[0]
+        if isinstance(m, nn.ConvTranspose1d):
+            flop[0] += 2 * x.shape[0] * x.shape[1] * m.in_channels * m.out_channels * m.kernel_size[0]
+        elif isinstance(m, nn.Conv1d):
+            flop[0] += 2 * out.numel() * (m.in_channels // m.groups) * m.kernel_size[0]
+        else:
+            flop[0] += 2 * out.numel() * m.in_features
+
+    handles = [m.register_forward_hook(hook) for m in dec.modules()
+               if isinstance(m, (nn.Conv1d, nn.ConvTranspose1d, nn.Linear))]
+    try:
+        with torch.inference_mode():
+            y = dec(z, f0, g=g)
+    finally:
+        for h in handles:
+            h.remove()
+    if isinstance(dec, RefineGANGenerator):
+        T = z.shape[0] * z.shape[1] * dec.upp
+        for i, block in enumerate(dec.downsample_blocks):
+            factor = dec.rates[-i - 1]
+            T = -(-T // factor)
+            flop[0] += 2 * block.in_channels * T * (2 * 64 * factor + 1)
+    params = sum(p.numel() for p in dec.parameters())
+    return flop[0], 4 * (params + z.numel() + f0.numel() + g.numel() + y.numel())
+
+
+def decoder_parts(dec, z, f0, g) -> dict:
+    """Median CUDA-event ms of each part of the decoder alone, on the
+    inputs the part sees in a call (noise off)."""
+    import torch
+
+    from rvc_tpu_torch.models.generators_extra import (RefineGANGenerator, audio_rate_sines,
+                                                       kaiser_sinc_decimate, linear_resize)
+    from rvc_tpu_torch.models.layers import leaky_relu
+
+    parts = {}
+    with torch.inference_mode():
+        if not isinstance(dec, RefineGANGenerator):
+            f0_up = f0[:, :, None].repeat_interleave(dec.upp, dim=1)
+            parts["source: sines (9 harmonics) + linear"] = cuda_ms(lambda: dec.m_source(f0_up))
+            har = dec.m_source(f0_up)
+            parts["conv_pre + cond"] = cuda_ms(lambda: dec.conv_pre(z) + dec.cond(g))
+            x = dec.conv_pre(z) + dec.cond(g)
+            for i, (up, nc, blocks) in enumerate(zip(dec.upsamples, dec.noise_convs, dec.mrfs)):
+                parts[f"stage {i}: upsample x{up.stride[0]} + noise conv"] = cuda_ms(
+                    lambda up=up, nc=nc, x=x: (up(leaky_relu(x)), nc(har)))
+                y, n = up(leaky_relu(x)), nc(har)
+                m = min(y.shape[1], n.shape[1])
+                y = y[:, :m] + n[:, :m]
+                parts[f"stage {i}: 3 MRF blocks, C={y.shape[-1]}, T={m}"] = cuda_ms(
+                    lambda y=y, blocks=blocks: sum(b(y) for b in blocks) / len(blocks))
+                x = sum(b(y) for b in blocks) / len(blocks)
+            parts["conv_post"] = cuda_ms(lambda: dec.conv_post(leaky_relu(x, 0.01)))
+            return parts
+        T = z.shape[1]
+
+        def source():
+            sines = audio_rate_sines(linear_resize(f0[:, :, None], T * dec.upp), dec.sample_rate)
+            return dec.pre_conv(torch.tanh(dec.m_source.merge(sines)))
+
+        parts["source: resize + sines + merge + pre_conv"] = cuda_ms(source)
+        x, downs = source(), []
+        for i, block in enumerate(dec.downsample_blocks):
+            factor = dec.rates[-i - 1]
+            xl = leaky_relu(x, dec.slope)
+            parts[f"down {i}: decimate /{factor}, {xl.shape[-1]} ch, {2 * 64 * factor + 1} "
+                  f"taps, T={xl.shape[1]}"] = cuda_ms(lambda xl=xl, f=factor: kaiser_sinc_decimate(xl, f))
+            d = kaiser_sinc_decimate(xl, factor)
+            parts[f"down {i}: conv {block.in_channels}->{block.out_channels}"] = cuda_ms(
+                lambda d=d, b=block: b(d))
+            downs.append(xl)
+            x = block(d)
+        parts["mel_conv + cond"] = cuda_ms(lambda: dec.mel_conv(z) + dec.cond(g))
+        x = torch.cat([dec.mel_conv(z) + dec.cond(g), x], dim=-1)
+        for i, (rate, block, d) in enumerate(zip(dec.rates, dec.upsample_conv_blocks,
+                                                 reversed(downs))):
+            parts[f"up {i}: resize x{rate}"] = cuda_ms(
+                lambda x=x, r=rate: linear_resize(leaky_relu(x, dec.slope), x.shape[1] * r))
+            y = linear_resize(leaky_relu(x, dec.slope), x.shape[1] * rate)
+            n = min(d.shape[1], y.shape[1])
+            y = torch.cat([y[:, :n], d[:, :n]], dim=-1)
+            parts[f"up {i}: ParallelResBlock {y.shape[-1]}->{block.input_conv.out_channels}, "
+                  f"T={n}"] = cuda_ms(lambda y=y, b=block: b(y))
+            x = block(y)
+        parts["conv_post"] = cuda_ms(lambda: dec.conv_post(leaky_relu(x, dec.slope)))
+    return parts
+
+
+def sine_drift(rvc, clip) -> dict:
+    """The decoder's audio-rate sine bank (float32, as the reference) on
+    the clip's f0 (13.5 s at the model's rate) against the same formula in
+    float64 on the card: max |difference| and the rel_l2 of the sines."""
+    import numpy as np
+    import torch
+    from torch.nn import functional as F
+
+    from rvc_tpu_torch.models.generators_extra import (RefineGANGenerator, audio_rate_sines,
+                                                       linear_resize)
+    from rvc_tpu_torch.utils import audio as audio_utils
+
+    p, dec = rvc.pipeline, rvc.pipeline.synthesizer.dec
+    refine = isinstance(dec, RefineGANGenerator)
+    harmonics = 0 if refine else dec.m_source.harmonic_num
+    sr = rvc.cfg.data.sample_rate
+    chunk = np.pad(audio_utils.highpass_filter(clip, 16000, 48.0, 5), (p.t_pad, p.t_pad),
+                   mode="reflect")
+    with torch.inference_mode():
+        f0 = p.f0(p._upload(chunk), 0.0, 0.0)[:, :int(round(CLIP_S * 100))]
+        frames = f0.shape[1]
+        f0_up = (linear_resize(f0[:, :, None], frames * dec.upp) if refine
+                 else f0[:, :, None].repeat_interleave(dec.upp, dim=1))
+        s32 = audio_rate_sines(f0_up, sr, harmonics).double()
+        f = f0_up.double()
+        mult = torch.arange(1, harmonics + 2, dtype=torch.float64, device=f.device)
+        rad = torch.fmod(f * mult / sr, 1.0)
+        tmp = torch.fmod(torch.cumsum(rad, dim=1), 1.0)
+        shift = F.pad(torch.where(tmp[:, 1:] - tmp[:, :-1] < 0, -1.0, 0.0).double(),
+                      (0, 0, 1, 0))
+        s64 = torch.sin(2.0 * torch.pi * torch.cumsum(rad + shift, dim=1)) * 0.1 * (f > 0)
+    diff = (s32 - s64).abs()
+    return {"samples": f0_up.shape[1], "harmonics": harmonics + 1, "max_abs": float(diff.max()),
+            "rel_l2": rel_l2(s32, s64), "max_abs_last_second": float(diff[:, -sr:].max()),
+            "sine_amp": 0.1}
+
+
+def phase_vocoders(work: str) -> dict:
+    """Each vocoder's 48 kHz model at full width (seed 0), written as a
+    native .safetensors with its .json sidecar and loaded through
+    RVC(model_path=...): wall, decoder ms and parts, FLOP and bound,
+    launches, GPU-vs-CPU corr, sine drift. Returns {key: launches}."""
+    import torch
+
+    from rvc_tpu_torch.api import RVC
+    from rvc_tpu_torch.configs import config_to_dict, get_config
+    from rvc_tpu_torch.models.generators_extra import HiFiGANMRFGenerator, RefineGANGenerator
+    from rvc_tpu_torch.models.synthesizer import SOURCE_NOISE_SEED, build_synthesizer
+    from rvc_tpu_torch.utils.weights import save_params, synthesizer_to_jax
+
+    classes = {"mrf": HiFiGANMRFGenerator, "refinegan": RefineGANGenerator}
+    by_path = {}
+    for key, vocoder in VOCODERS.items():
+        cfg = get_config(48000, model_vocoder=vocoder)
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(SEED)
+            synth = build_synthesizer(cfg)
+        path = os.path.join(work, f"{key}48k.safetensors")
+        save_params(synthesizer_to_jax(synth.state_dict()), path, config=config_to_dict(cfg))
+        del synth
+        rvc = RVC(model_path=path, seed=SEED, device="cuda")
+        dec = rvc.pipeline.synthesizer.dec
+        if rvc.cfg.model.vocoder != vocoder or not isinstance(dec, classes[key]):
+            raise AssertionError(f"{path} loaded as {rvc.cfg.model.vocoder} / {type(dec)}")
+        clip = test_clip(CLIP_S, SEED)
+        _, wall_ms, launches = timed_conversion(rvc, clip)
+        if launches != VOCODER_LAUNCHES:
+            raise AssertionError(f"{vocoder} launched {launches}, want {VOCODER_LAUNCHES}")
+        z, f0, g = decoder_inputs(rvc, clip)
+
+        def decode():
+            gen = torch.Generator(device=z.device)
+            gen.manual_seed(SOURCE_NOISE_SEED)
+            return dec(z, f0, g=g, generator=gen)
+
+        with torch.inference_mode():
+            dec_ms = cuda_ms(decode)
+        flop, nbytes = decoder_work(dec, z, f0, g)
+        bound_ms, bound_by = bound(flop, nbytes, PEAK_F32)
+        emit({"phase": "vocoders", "vocoder": vocoder,
+              "config": f"get_config(48000, model_vocoder={vocoder!r})",
+              "decoder_params_m": sum(p.numel() for p in dec.parameters()) / 1e6,
+              "clip_s": CLIP_S, "wall_ms": wall_ms, "realtime_x": CLIP_S * 1e3 / wall_ms,
+              "launches": launches, "decoder_frames": z.shape[1], "decoder_ms": dec_ms,
+              "decoder_tflop": flop / 1e12, "decoder_tflop_per_s": flop / dec_ms / 1e9,
+              "bound_ms": bound_ms, "bound_by": bound_by, "bound": bound_text(PEAK_F32),
+              "parts_ms": decoder_parts(dec, z, f0, g), "sine_drift": sine_drift(rvc, clip),
+              "parity": gpu_cpu_corr(rvc, path, None)})
+        by_path[key] = launches
+        del rvc, dec, z, f0, g
+        torch.cuda.empty_cache()
+    return by_path
+
+
+# ---------------------------------------------------------------------------
+# longform: BatchConverter.convert_long_batch, 64 x 60 s
+# ---------------------------------------------------------------------------
+
+LONG_UTTS, LONG_S = 64, 60.0          # scripts/bench_longform.py's shape
+CHUNK_S, PAD_S, LONG_BATCH = 10.0, 1.0, 8
+AB_UTTS, AB_BATCHES = 16, (1, 8, 16)
+LONG_LAUNCHES = {"resblock_group": 27, "resblock_chain": 9, "rel_attention": 6, "log_mel": 1}
+
+
+def synth_utterances(n: int, seconds: float, sr: int = 16000):
+    """Seeded voiced utterances, 3 harmonics of a slowly swept f0 (a copy of
+    `scripts/bench_longform.py:synth_utterances`)."""
+    import numpy as np
+
+    utts = []
+    for i in range(n):
+        rng = np.random.default_rng(100 + i)
+        t = np.arange(int(seconds * sr)) / sr
+        f0 = 120.0 + 60.0 * np.sin(2 * np.pi * (0.2 + 0.05 * (i % 7)) * t)
+        phase = 2 * np.pi * np.cumsum(f0) / sr
+        sig = sum((0.5 / h) * np.sin(h * phase + rng.uniform(0, np.pi))
+                  for h in (1, 2, 3))
+        env = 0.6 + 0.4 * np.sin(2 * np.pi * 1.1 * t + i)
+        utts.append((0.6 * sig * env / np.abs(sig).max()).astype(np.float32))
+    return utts
+
+
+def timed_long(bc, utts, batch_size: int) -> tuple:
+    """(outputs, wall s, launches) of one convert_long_batch, the counts set
+    to 0 just before and read just after; every output finite and exactly
+    tgt_sr / 16 kHz times its input's length."""
+    import numpy as np
+    import torch
+
+    from rvc_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    outs = bc.convert_long_batch(utts, chunk_seconds=CHUNK_S, pad_seconds=PAD_S,
+                                 batch_size=batch_size)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    ratio = bc.rvc.cfg.data.sample_rate // 16000
+    bad = [i for i, (u, o) in enumerate(zip(utts, outs))
+           if len(o) != ratio * len(u) or not np.isfinite(o).all()]
+    if bad or len(outs) != len(utts):
+        raise AssertionError(f"long-form outputs {bad[:5]} are not finite or not "
+                             f"{ratio} x their input's length")
+    return outs, wall_s, launches
+
+
+def phase_longform(rvc) -> dict:
+    """The main path's model through BatchConverter: 64 x 60 s in 10 s
+    windows with 1 s of context, 8 a dispatch (first call, wall,
+    audio-seconds per second, peak memory, launches per dispatch); the
+    first 16 at 1, 8 and 16 a dispatch; every kernel call of one B = 8
+    dispatch against its plain version; one window at B = 8 against B = 1.
+    Returns the timed run's launches."""
+    import numpy as np
+    import torch
+
+    from rvc_tpu_torch.ops.kernels import record_calls
+    from rvc_tpu_torch.parallel import BatchConverter
+
+    p = rvc.pipeline
+    p.source_noise = True
+    bc = BatchConverter(rvc)
+    t0 = time.perf_counter()
+    utts = synth_utterances(LONG_UTTS, LONG_S)
+    data_s = time.perf_counter() - t0
+    windows = LONG_UTTS * math.ceil(LONG_S / CHUNK_S)
+    dispatches = math.ceil(windows / LONG_BATCH)
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    bc.convert_long_batch(utts, chunk_seconds=CHUNK_S, pad_seconds=PAD_S,
+                          batch_size=LONG_BATCH)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    _, wall_s, launches = timed_long(bc, utts, LONG_BATCH)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    per_dispatch = {k: n / dispatches for k, n in launches.items()}
+    if per_dispatch != LONG_LAUNCHES:
+        raise AssertionError(f"{dispatches} dispatches launched {launches}: want "
+                             f"{LONG_LAUNCHES} each")
+
+    ab = {}
+    for b in AB_BATCHES:
+        bc.convert_long_batch(utts[:1], chunk_seconds=CHUNK_S, pad_seconds=PAD_S,
+                              batch_size=b)                     # warm at this batch
+        _, ab_s, _ = timed_long(bc, utts[:AB_UTTS], b)
+        ab[b] = {"wall_s": ab_s, "audio_s_per_s": AB_UTTS * LONG_S / ab_s,
+                 "dispatches": math.ceil(AB_UTTS * math.ceil(LONG_S / CHUNK_S) / b)}
+
+    emit({"phase": "longform", "utterances": LONG_UTTS, "utterance_s": LONG_S,
+          "chunk_s": CHUNK_S, "pad_s": PAD_S, "batch_size": LONG_BATCH,
+          "cut": "none: 64 x 60 s as scripts/bench_longform.py",
+          "windows": windows, "dispatches": dispatches, "data_s": data_s,
+          "first_call_s": first_s, "wall_s": wall_s,
+          "audio_s_per_s": LONG_UTTS * LONG_S / wall_s, "max_memory_gb": peak_gb,
+          "launches": launches, "launches_per_dispatch": per_dispatch,
+          "ab_first_16": ab})
+
+    # one B = 8 dispatch: the first window of each of 8 utterances
+    chunk, pad = int(CHUNK_S * 16000), int(PAD_S * 16000)
+    batch = np.stack([np.pad(u, (pad, pad), mode="reflect")[:chunk + 2 * pad]
+                      for u in utts[:LONG_BATCH]])
+    stages = {}
+    with torch.inference_mode():
+        audio = torch.from_numpy(batch).to(rvc.device)
+        stages["dispatch (convert_batch, deferred)"] = cuda_ms(
+            lambda: bc.convert_batch(batch, defer=True))
+        stages["f0 program"] = cuda_ms(lambda: p.f0(audio, 0.0, 0.0))
+        stages["HuBERT"] = cuda_ms(lambda: p.hubert(audio, output_hidden_states=True))
+    t0 = time.perf_counter()
+    with record_calls() as calls:
+        bc.convert_batch(batch)
+    with torch.inference_mode():
+        checked = check_calls(calls)
+    held = {}
+    for fn, _, _, _, a, desc, cmp in checked:
+        name = fn.__name__
+        h = held.setdefault(name, {"calls": 0, "max_abs": 0.0, "rel_l2": 0.0, "inputs": []})
+        h["calls"] += 1
+        h["inputs"].append(desc.get("x", desc.get("q", desc.get("audio"))))
+        for k in ("max_abs", "rel_l2", "emu_rel_l2", "emu_update_rel_l2", "excess",
+                  "plain_f32_excess", "plain_f32_vs_f64_max_abs", "plain_f32_vs_f64_rel_l2",
+                  "vs_plain_f32_max_abs"):
+            if k in cmp:
+                h[k] = max(h[k], cmp[k]) if k in h else cmp[k]
+        if name in ("rel_attention", "log_mel"):
+            h["grid"] = kernel_grid(name, a)
+    del calls, checked
+    check_s = time.perf_counter() - t0
+
+    # rows do not mix: one window at B = 8 against the same window alone
+    p.source_noise = False
+    row = min(3, len(batch) - 1)
+    together = bc.convert_batch(batch)[row]
+    alone = bc.convert_batch(batch[row:row + 1])[0]
+    p.source_noise = True
+    rows = {"row": row, "max_abs": float(np.abs(together - alone).max()),
+            "corr": float(np.corrcoef(together, alone)[0, 1])}
+    if not rows["corr"] > 0.9999:
+        raise AssertionError(f"a window at B = 8 against B = 1: {rows}")
+    emit({"phase": "longform_b8", "batch_size": LONG_BATCH, "window_samples": batch.shape[1],
+          "dispatch_ms": stages, "checked": held, "check_s": check_s, "b8_vs_b1": rows})
+    return launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -973,11 +1539,17 @@ def main() -> int:
         index_path, retrieval_launches = phase_retrieval(rvc, work)
         f0less_launches = phase_f0less(index_path, work)
         pitch_launches = phase_pitch(rvc, work)
+        postfx_launches = phase_postfx(rvc, work)
+        vocoder_launches = phase_vocoders(work)
+    longform_launches = phase_longform(rvc)
     for entry, name in zip(summary, KERNELS):
         entry["launches_by_path"] = {"pipeline": launches[name],
                                      "retrieval": retrieval_launches[name],
                                      "f0less": f0less_launches[name],
-                                     **{k: v[name] for k, v in pitch_launches.items()}}
+                                     **{k: v[name] for k, v in pitch_launches.items()},
+                                     "postfx": postfx_launches[name],
+                                     **{k: v[name] for k, v in vocoder_launches.items()},
+                                     "longform": longform_launches[name]}
 
     emit({"kernels": summary})
     print(card, flush=True)

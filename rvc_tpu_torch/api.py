@@ -4,9 +4,10 @@
 converts a recording on the card with a user's voice model: an upstream
 `.pth` inference checkpoint or a native `.safetensors` file with its
 `.json` config sidecar, and the model's FAISS `.index` for retrieval. With
-no model path the weights are random, made from `seed`. Splitting on
-silence, noise reduction, formant shifting and the effects are not ported
-(ROADMAP §2.9).
+no model path the weights are random, made from `seed`. Around the
+conversion, on the host as in the reference: formant shifting of the input,
+splitting on silence, noise reduction, the post-processing effects and
+non-WAV export.
 """
 
 from __future__ import annotations
@@ -23,11 +24,15 @@ from rvc_tpu_torch.models.hubert import HubertConfig, HubertModel
 from rvc_tpu_torch.models.rmvpe import E2E
 from rvc_tpu_torch.models.synthesizer import build_synthesizer
 from rvc_tpu_torch.pipelines.offline import SAMPLE_RATE, Pipeline
+from rvc_tpu_torch.realtime.fx import build_fx_chain
 from rvc_tpu_torch.retrieval import read_faiss_index
 from rvc_tpu_torch.utils import audio as audio_utils
 from rvc_tpu_torch.utils import weights as W
 from rvc_tpu_torch.utils.device import resolve_device, use_fp32_numerics
 from rvc_tpu_torch.utils.embedders import resolve_embedder
+from rvc_tpu_torch.utils.formant import formant_shift
+from rvc_tpu_torch.utils.noise import reduce_noise
+from rvc_tpu_torch.utils.split_audio import merge_audio, split_silence_nonsilent
 
 
 # Upstream .pth inference checkpoints carry an 18-element config list
@@ -98,10 +103,6 @@ def _load_hubert(path: str) -> Mapping:
     return {k: v for k, v in sd.items() if not k.startswith("final_proj.")}
 
 
-def _not_ported(what: str, where: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to rvc_tpu_torch yet (ROADMAP {where})")
-
-
 class RVC:
     """``RVC(model_path, index_path=...).infer_file(in_wav, out_wav, ...)``.
 
@@ -161,34 +162,60 @@ class RVC:
               pitch_guidance: bool = True, input_f0: Optional[np.ndarray] = None,
               proposed_pitch: bool = False, proposed_pitch_threshold: float = 155.0,
               split_audio: bool = False, clean_audio: bool = False,
-              formant_shifting: bool = False, post_process: bool = False,
-              f0_hop_length: int = 160) -> np.ndarray:
+              clean_strength: float = 0.5, formant_shifting: bool = False,
+              formant_qfrency: float = 1.0, formant_timbre: float = 1.0,
+              post_process: bool = False, f0_hop_length: int = 160,
+              **fx_kwargs) -> np.ndarray:
         """16 kHz mono float array -> converted audio at the model's rate.
         f0_method: rmvpe, crepe, crepe-tiny, fcpe, dio, pm, harvest or
         hybrid[a+b+...]; input_f0 (one f0 per 10 ms frame) replaces the
         extraction; proposed_pitch shifts toward proposed_pitch_threshold Hz;
         f0_hop_length is CREPE's analysis hop. index_rate applies only when
-        the model has an index; an f0-less model converts without pitch."""
-        for flag, what in ((split_audio, "split_audio"), (clean_audio, "clean_audio"),
-                           (formant_shifting, "formant_shifting"),
-                           (post_process, "post_process")):
-            if flag:
-                raise _not_ported(what, "§2.9")
-        return self.pipeline.pipeline(
-            np.asarray(audio_16k, dtype=np.float32), sid=sid, pitch_shift=pitch,
-            f0_method=f0_method, index=self.index,
-            index_rate=index_rate if self.index is not None else 0.0,
-            pitch_guidance=pitch_guidance and self.cfg.model.use_f0,
-            volume_envelope=volume_envelope, protect=protect, f0_autotune=f0_autotune,
-            f0_autotune_strength=f0_autotune_strength, input_f0=input_f0,
-            proposed_pitch=proposed_pitch, proposed_pitch_threshold=proposed_pitch_threshold,
-            f0_hop_length=f0_hop_length)
+        the model has an index; an f0-less model converts without pitch.
+
+        On the host, in the reference's order: formant_shifting (with a
+        timbre other than 1) warps the input's envelope; split_audio
+        converts each non-silent interval apart and merges them back;
+        clean_audio gates stationary noise at clean_strength; post_process
+        runs the effects that fx_kwargs turn on (`realtime.fx.build_fx_chain`).
+        """
+        audio_16k = np.asarray(audio_16k, dtype=np.float32)
+        if formant_shifting and formant_timbre != 1.0:
+            audio_16k = formant_shift(audio_16k, SAMPLE_RATE, formant_qfrency, formant_timbre)
+
+        def convert(a: np.ndarray) -> np.ndarray:
+            return self.pipeline.pipeline(
+                a, sid=sid, pitch_shift=pitch, f0_method=f0_method, index=self.index,
+                index_rate=index_rate if self.index is not None else 0.0,
+                pitch_guidance=pitch_guidance and self.cfg.model.use_f0,
+                volume_envelope=volume_envelope, protect=protect, f0_autotune=f0_autotune,
+                f0_autotune_strength=f0_autotune_strength, input_f0=input_f0,
+                proposed_pitch=proposed_pitch, proposed_pitch_threshold=proposed_pitch_threshold,
+                f0_hop_length=f0_hop_length)
+
+        sr = self.cfg.data.sample_rate
+        if split_audio:
+            intervals, segments = split_silence_nonsilent(audio_16k, SAMPLE_RATE)
+            out = merge_audio(intervals, [convert(s) for s in segments], len(audio_16k),
+                              SAMPLE_RATE, sr)
+        else:
+            out = convert(audio_16k)
+        if clean_audio:
+            out = reduce_noise(out, sr, clean_strength)
+        if post_process:
+            out = build_fx_chain(**fx_kwargs)(out, sr)
+        return out
 
     def infer_file(self, audio_input: str, audio_output: str, export_format: str = "WAV",
                    **kwargs) -> str:
-        """An audio file (any rate) in, a 16-bit WAV at the model's rate out."""
-        if export_format.upper() != "WAV":
-            raise _not_ported(f"export_format {export_format!r}", "§2.9")
+        """An audio file (any rate) in, the converted audio at the model's
+        rate out: a 16-bit WAV at audio_output, or for MP3 / FLAC / OGG /
+        M4A audio_output's stem with that extension, through soundfile or
+        the ffmpeg binary (RuntimeError when neither can). Returns the path
+        written."""
         out = self.infer(audio_utils.load_audio(audio_input, SAMPLE_RATE), **kwargs)
+        if export_format.upper() != "WAV":
+            return audio_utils.encode_audio(out, self.cfg.data.sample_rate,
+                                            os.path.splitext(audio_output)[0], export_format)
         audio_utils.save_wav(audio_output, out, self.cfg.data.sample_rate)
         return audio_output

@@ -8,9 +8,10 @@ defaults, plus `--device`.
 runs on the card; `--device cpu` runs the kernels' plain PyTorch versions
 on the host. `--f0_method` takes rmvpe, crepe, crepe-tiny, fcpe, dio, pm,
 harvest or hybrid[a+b+...]; `--f0_file` (one f0 per 10 ms frame, read with
-`np.loadtxt`) replaces the extraction. Flags of paths that are not ported
-yet (splitting, cleaning, formants, the effects, non-WAV export) fail when
-set away from their defaults.
+`np.loadtxt`) replaces the extraction. `--split_audio`, `--clean_audio`,
+`--formant_shifting` and `--post_process` (with the ten effects' flags) run
+on the host around the conversion; `--export_format` MP3, FLAC, OGG or M4A
+writes through soundfile or the ffmpeg binary and fails when neither can.
 """
 
 from __future__ import annotations
@@ -18,13 +19,8 @@ from __future__ import annotations
 import argparse
 import os
 
-# flags of paths not ported yet -> where ROADMAP lists them; each must stay
-# at its default
-_NOT_PORTED = {
-    "split_audio": "§2.9", "clean_audio": "§2.9", "clean_strength": "§2.9",
-    "export_format": "§2.9", "formant_shifting": "§2.9", "formant_qfrency": "§2.9",
-    "formant_timbre": "§2.9", "post_process": "§2.9",
-}
+# the post-processing effects (`realtime.fx.build_fx_chain`): on / off, then
+# the values with their defaults
 _FX_FLAGS = ("reverb", "pitch_shift", "limiter", "gain", "distortion", "chorus", "bitcrush",
              "clipping", "compressor", "delay")
 _FX_VALUES = (
@@ -41,8 +37,7 @@ _FX_VALUES = (
     ("compressor_attack", 1.0), ("compressor_release", 100.0),
     ("delay_seconds", 0.5), ("delay_feedback", 0.0), ("delay_mix", 0.5),
 )
-_NOT_PORTED.update({k: "§2.9" for k in _FX_FLAGS})
-_NOT_PORTED.update({k: "§2.9" for k, _ in _FX_VALUES})
+_FX_KEYS = _FX_FLAGS + tuple(k for k, _ in _FX_VALUES)
 
 
 def _f0_method(value: str) -> str:
@@ -98,13 +93,6 @@ def _add_infer_args(p: argparse.ArgumentParser) -> None:
                         "(default: the CUDA card)")
 
 
-def _check_ported(parser: argparse.ArgumentParser, args: argparse.Namespace) -> None:
-    for dest, where in _NOT_PORTED.items():
-        if getattr(args, dest) != parser.get_default(dest):
-            parser.error(f"--{dest} is not ported to rvc_tpu_torch yet (ROADMAP {where}); "
-                         "leave it at its default")
-
-
 def _infer_kwargs(args: argparse.Namespace) -> dict:
     input_f0 = None
     if args.f0_file:
@@ -117,7 +105,11 @@ def _infer_kwargs(args: argparse.Namespace) -> dict:
                 f0_autotune_strength=args.f0_autotune_strength, input_f0=input_f0,
                 proposed_pitch=args.proposed_pitch,
                 proposed_pitch_threshold=args.proposed_pitch_threshold,
-                f0_hop_length=args.hop_length)
+                split_audio=args.split_audio, clean_audio=args.clean_audio,
+                clean_strength=args.clean_strength, formant_shifting=args.formant_shifting,
+                formant_qfrency=args.formant_qfrency, formant_timbre=args.formant_timbre,
+                post_process=args.post_process, export_format=args.export_format,
+                f0_hop_length=args.hop_length, **{k: getattr(args, k) for k in _FX_KEYS})
 
 
 def _load_rvc(args: argparse.Namespace):
@@ -140,7 +132,7 @@ def cmd_batch_infer(args: argparse.Namespace) -> None:
     files = [f for f in sorted(os.listdir(args.input_folder)) if f.lower().endswith(exts)]
     for f in files:
         out = os.path.join(args.output_folder, os.path.splitext(f)[0] + "_output.wav")
-        rvc.infer_file(os.path.join(args.input_folder, f), out, **_infer_kwargs(args))
+        out = rvc.infer_file(os.path.join(args.input_folder, f), out, **_infer_kwargs(args))
         print(f"wrote {out}")
     print(f"{len(files)} files converted")
 
@@ -165,7 +157,6 @@ def main(argv=None) -> None:
     p.set_defaults(fn=cmd_batch_infer)
 
     args = parser.parse_args(argv)
-    _check_ported(sub.choices[args.command], args)
     args.fn(args)
 
 

@@ -14,6 +14,7 @@ layout of the same function and has no counterpart here.
 
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import Optional
 
 import numpy as np
@@ -183,13 +184,20 @@ class E2E(nn.Module):
         return torch.sigmoid(self.fc(x))
 
 
+@lru_cache(maxsize=4)
+def _cents_padded(device: str) -> torch.Tensor:
+    """CENTS_MAPPING with 4 zero bins each side, kept on `device`, so a
+    decode copies nothing from the host (such a copy waits for the queue)."""
+    return F.pad(torch.from_numpy(CENTS_MAPPING), (4, 4)).to(device)
+
+
 def decode_salience(hidden: torch.Tensor, thred: float = 0.03) -> torch.Tensor:
     """(B, T, 360) salience -> (B, T) f0 in Hz (0 = unvoiced): the weighted
     average of cents over 9 bins around the argmax, gated on the peak."""
     center = torch.argmax(hidden, dim=-1)
     idx = center[..., None] + torch.arange(9, device=hidden.device)  # in padded bins
     weights = torch.gather(F.pad(hidden, (4, 4)), -1, idx)
-    cents_pad = F.pad(torch.from_numpy(CENTS_MAPPING).to(hidden.device), (4, 4))
+    cents_pad = _cents_padded(str(hidden.device))
     wsum = weights.sum(-1)
     wcent = (weights * cents_pad[idx]).sum(-1)
     cents = torch.where(wsum > 0, wcent / wsum.clamp_min(1e-12), torch.zeros_like(wsum))

@@ -1,6 +1,8 @@
 """The RVC Synthesizer, inference only (counterpart of
-`rvc_tpu/models/synthesizer.py`): enc_p -> flow reverse -> decoder, the
-NSF HiFi-GAN for f0 models and the plain HiFi-GAN for f0-less ones.
+`rvc_tpu/models/synthesizer.py`): enc_p -> flow reverse -> decoder. An f0
+model's decoder is the one `vocoder` names: "MRF HiFi-GAN", "RefineGAN"
+(`generators_extra.py`), or else the NSF HiFi-GAN; f0-less models take the
+plain HiFi-GAN, whatever `vocoder` says.
 
 Module names are the upstream torch checkpoint's (`enc_p`, `flow`, `dec`,
 `emb_g`). The posterior encoder enc_q is training-only and absent.
@@ -17,6 +19,7 @@ from rvc_tpu_torch.configs import ModelConfig, RVCConfig
 from rvc_tpu_torch.models.encoders import TextEncoder
 from rvc_tpu_torch.models.flow import ResidualCouplingBlock
 from rvc_tpu_torch.models.generators import HiFiGANGenerator, HiFiGANNSFGenerator
+from rvc_tpu_torch.models.generators_extra import HiFiGANMRFGenerator, RefineGANGenerator
 
 SOURCE_NOISE_SEED = 0x5EED
 
@@ -25,11 +28,6 @@ class Synthesizer(nn.Module):
     def __init__(self, model: ModelConfig, sr: int):
         super().__init__()
         m = model
-        # f0-less models always take the plain HiFi-GAN, whatever `vocoder` says
-        if m.use_f0 and m.vocoder != "HiFi-GAN":
-            raise NotImplementedError(
-                f"the {m.vocoder!r} vocoder is not ported yet (ROADMAP §2.8); "
-                "f0 models run the NSF HiFi-GAN ('HiFi-GAN')")
         self.use_f0 = m.use_f0
         self.enc_p = TextEncoder(m.inter_channels, m.hidden_channels, m.filter_channels,
                                  m.n_heads, m.n_layers, m.kernel_size,
@@ -39,7 +37,18 @@ class Synthesizer(nn.Module):
         dec_args = (m.inter_channels, m.resblock_kernel_sizes, m.resblock_dilation_sizes,
                     m.upsample_rates, m.upsample_initial_channel, m.upsample_kernel_sizes,
                     m.gin_channels)
-        self.dec = HiFiGANNSFGenerator(*dec_args, sr) if m.use_f0 else HiFiGANGenerator(*dec_args)
+        if not m.use_f0:
+            self.dec = HiFiGANGenerator(*dec_args)
+        elif m.vocoder == "MRF HiFi-GAN":
+            self.dec = HiFiGANMRFGenerator(
+                m.inter_channels, m.upsample_initial_channel, m.upsample_rates,
+                m.upsample_kernel_sizes, m.resblock_kernel_sizes, m.resblock_dilation_sizes,
+                m.gin_channels, sr, harmonic_num=8)
+        elif m.vocoder == "RefineGAN":
+            self.dec = RefineGANGenerator(sr, m.upsample_rates, m.inter_channels,
+                                          m.upsample_initial_channel, m.gin_channels)
+        else:
+            self.dec = HiFiGANNSFGenerator(*dec_args, sr)
         self.emb_g = nn.Embedding(m.spk_embed_dim, m.gin_channels)
 
     def infer(self, phone: torch.Tensor, phone_lengths: torch.Tensor,
@@ -49,8 +58,9 @@ class Synthesizer(nn.Module):
         sid (B,) -> (wave (B, T*upp, 1), x_mask (B, T, 1)).
 
         The prior noise scale is 0, as in the reference's pipeline;
-        `generator` draws the NSF source noise (None: no noise). An f0-less
-        model takes no pitch and no f0 (both None).
+        `generator` draws the decoder's noise (the source's, and RefineGAN's
+        AdaIN; None: no noise). An f0-less model takes no pitch and no f0
+        (both None).
         """
         if self.use_f0 and nsff0 is None:
             raise ValueError("an f0 model's NSF decoder needs the f0 (nsff0)")

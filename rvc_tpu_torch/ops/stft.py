@@ -102,5 +102,5 @@ def log_mel_spectrogram(y: torch.Tensor, n_fft: int, n_mels: int,
     """center=True log-mel. (B, T) -> (B, 1 + T // hop_length, n_mels)."""
     mag = stft(y, n_fft, hop_length, win_length, center=True).abs()
     fb = torch.from_numpy(mel_filterbank(sample_rate, n_fft, n_mels, fmin, fmax,
-                                         htk=htk)).to(y.device)
+                                         htk=htk)).to(y.device, mag.dtype)
     return torch.log(torch.clamp(mag @ fb.T, min=clamp))

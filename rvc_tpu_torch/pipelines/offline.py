@@ -17,7 +17,8 @@ chunk, or the user's `input_f0`; then autotune or `proposed_pitch`, the
 semitone shift and the coarse bins in numpy), then `voice_conversion`,
 trimmed on the host; f0-less models take it without pitch. The TPU
 dispatch machinery (packing, frozen weights, f16 transfers, async fetch,
-chunk batching) is not ported.
+chunk batching) is not ported; batches of equal-length utterances convert
+through `parallel.infer.BatchConverter`, which reuses this module's pieces.
 """
 
 from __future__ import annotations
@@ -129,12 +130,14 @@ class Pipeline:
     # ------------------------------------------------------------------
     def f0(self, audio: torch.Tensor, pitch_shift: float,
            autotune_strength: float) -> torch.Tensor:
-        """The f0 program: padded audio (B, T) -> f0 (B, T // 160)."""
+        """The f0 program: padded audio (B, T) -> f0 (B, T // 160); autotune
+        at a strength of 0 is the identity and is skipped."""
         rmvpe = RMVPE(self.rmvpe)
         hidden = rmvpe.mel2hidden(rmvpe.mel(audio))
         f0 = decode_salience(hidden, 0.03)[:, :audio.shape[1] // WINDOW]
         f0 = torch.where((f0 >= F0_MIN) & (f0 <= F0_MAX), f0, torch.zeros_like(f0))
-        f0 = autotune_f0_torch(f0, autotune_strength)
+        if autotune_strength:
+            f0 = autotune_f0_torch(f0, autotune_strength)
         return f0 * 2.0 ** (pitch_shift / 12.0)
 
     def get_f0(self, x: np.ndarray, p_len: int, f0_method: str = "rmvpe",
@@ -187,21 +190,27 @@ class Pipeline:
             feats, feats_raw = _edge_pad(feats, hub_pad), _edge_pad(feats_raw, hub_pad)
         return feats, feats_raw
 
-    def _synthesize(self, feats: torch.Tensor, feats_raw: torch.Tensor, p_len: int, sid: int,
-                    protect: float, pitch: Optional[torch.Tensor] = None,
+    def _synthesize(self, feats: torch.Tensor, feats_raw: torch.Tensor,
+                    lengths: torch.Tensor, sids: torch.Tensor, protect: float,
+                    pitch: Optional[torch.Tensor] = None,
                     pitchf: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Features (1, T, C) and pitch (coarse, f0; (1, 2T) each, or None
-        for an f0-less model) -> wave (1, samples) at the target rate."""
+        """Features (B, T, C), frame lengths and speaker ids ((B,) on the
+        device) and pitch (coarse, f0; (B, 2T) each, or None for an f0-less
+        model) -> wave (B, samples) at the target rate. The source noise
+        comes from one generator seeded 0x5EED for the call."""
         feats_up = upsample_protect(feats, feats_raw, pitchf,
                                     protect if pitchf is not None else 1.0)
         generator = None
         if self.source_noise and pitchf is not None:
             generator = torch.Generator(device=self.device)
             generator.manual_seed(SOURCE_NOISE_SEED)
-        wave, _ = self.synthesizer.infer(feats_up, torch.tensor([p_len], device=self.device),
-                                         pitch, pitchf, torch.tensor([sid], device=self.device),
+        wave, _ = self.synthesizer.infer(feats_up, lengths, pitch, pitchf, sids,
                                          generator=generator)
         return wave[:, :, 0]
+
+    def _one(self, value: int) -> torch.Tensor:
+        """A batch of one: (1,) int64 on the pipeline's device."""
+        return torch.tensor([value], device=self.device)
 
     def _convert(self, audio: torch.Tensor, f0: torch.Tensor, sid: int, p_len: int,
                  protect: float, index: Optional[IVFFlatIndex] = None,
@@ -215,7 +224,8 @@ class Pipeline:
         # zero f0 beyond the true (unpadded) frame count
         frame_valid = torch.arange(t_feat, device=f0.device)[None, :] < p_len
         f0 = torch.where(frame_valid, f0, torch.zeros_like(f0))
-        return self._synthesize(feats, feats_raw, p_len, sid, protect, coarse_f0_torch(f0), f0)
+        return self._synthesize(feats, feats_raw, self._one(p_len), self._one(sid), protect,
+                                coarse_f0_torch(f0), f0)
 
     def _upload(self, audio0: np.ndarray) -> torch.Tensor:
         """A chunk bucket-padded as the reference pads it, on the device (1, T)."""
@@ -262,7 +272,8 @@ class Pipeline:
             pitchf_arr[: min(p_len, len(pitchf))] = pitchf[:p_len]
             pitch_t = torch.from_numpy(pitch_arr).long()[None].to(self.device)
             pitchf_t = torch.from_numpy(pitchf_arr)[None].to(self.device)
-        wave = self._synthesize(feats, feats_raw, p_len, sid, protect, pitch_t, pitchf_t)
+        wave = self._synthesize(feats, feats_raw, self._one(p_len), self._one(sid), protect,
+                                pitch_t, pitchf_t)
         return wave[0].float().cpu().numpy()[: p_len * (self.tgt_sr // 100)]
 
     # ------------------------------------------------------------------

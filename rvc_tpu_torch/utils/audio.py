@@ -1,5 +1,5 @@
-"""Audio I/O and host-side DSP (a copy of `rvc_tpu/utils/audio.py` without
-the non-WAV encoder; the port imports nothing of `rvc_tpu`).
+"""Audio I/O and host-side DSP (a copy of `rvc_tpu/utils/audio.py`; the port
+imports nothing of `rvc_tpu`).
 
 Capability parity with `rvc_mlx/lib/utils.py` (`load_audio`,
 `load_audio_16k`) and the pipeline's filter stage
@@ -162,3 +162,49 @@ def peak_normalize(audio: np.ndarray, peak: float = 0.99) -> np.ndarray:
     if m > 1:
         return (audio / m).astype(np.float32)
     return audio.astype(np.float32)
+
+
+def encode_audio(audio: np.ndarray, sr: int, base_path: str,
+                 export_format: str) -> str:
+    """Encode to a non-WAV container (MP3/FLAC/OGG/M4A).
+
+    Tries soundfile, then the ffmpeg binary (the reference's converter,
+    `rvc/infer/infer.py:320-338`). Raises RuntimeError when neither is
+    available — the CLI must not claim one format and write another.
+    """
+    fmt = export_format.upper()
+    path = base_path + "." + fmt.lower()
+    sf_err = None
+    try:
+        import soundfile as sf
+
+        sf.write(path, audio, sr, format=fmt)
+        return path
+    except ImportError:
+        pass
+    except Exception as e:
+        # libsndfile cannot encode every allowed format (M4A/AAC never,
+        # MP3 only in recent builds) — fall through to ffmpeg, the
+        # reference's encoder, before giving up
+        sf_err = e
+    import shutil
+    import subprocess
+    import tempfile
+
+    ffmpeg = shutil.which("ffmpeg")
+    if ffmpeg:
+        with tempfile.NamedTemporaryFile(suffix=".wav", delete=False) as t:
+            tmp = t.name
+        try:
+            save_wav(tmp, audio, sr)
+            subprocess.run([ffmpeg, "-y", "-loglevel", "error", "-i", tmp,
+                            path], check=True)
+            return path
+        finally:
+            os.unlink(tmp)
+    detail = f" (soundfile: {sf_err})" if sf_err else ""
+    raise RuntimeError(
+        f"cannot export {fmt}: no working encoder — soundfile "
+        f"{'failed' if sf_err else 'is not installed'} and no ffmpeg "
+        f"binary is available{detail}. Install one of them, or use "
+        f"--export_format WAV.")

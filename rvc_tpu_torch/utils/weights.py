@@ -14,7 +14,8 @@ read and write the file format (no `safetensors` package needed), and
 `crepe_from_jax` / `fcpe_from_jax` map such a tree (weight norm already
 fused) onto the port's state dicts, in torch layouts: conv weights
 (K, Cin, Cout) -> (Cout, Cin, K), transposed convs (K, Cin, Cout) ->
-(Cin, Cout, K), and the 2-D forms alike.
+(Cin, Cout, K), and the 2-D forms alike. `synthesizer_to_jax` maps a
+synthesizer back, so the port writes native checkpoints too.
 """
 
 from __future__ import annotations
@@ -79,7 +80,11 @@ def _convert(flat: Mapping[str, np.ndarray], rules: Sequence[Rule],
 
 
 _INDEXED = ("attn_layers", "ffn_layers", "in_layers", "res_skip_layers", "ups",
-            "noise_convs", "resblocks", "convs1", "convs2")
+            "noise_convs", "resblocks", "convs1", "convs2", "upsamples", "layers",
+            "downsample_blocks", "upsample_conv_blocks")
+# RefineGAN's ParallelResBlock: upstream's blocks.J Sequential holds AdaIN (0),
+# the RefineResBlock (1) and AdaIN (2)
+_PARALLEL = {"adain1": 0, "res": 1, "adain2": 2}
 
 
 def _synth_key(path: str) -> str:
@@ -88,6 +93,17 @@ def _synth_key(path: str) -> str:
         m = re.fullmatch(r"flows_(\d+)", p)
         if m:  # upstream interleaves Flip modules: couplings at 0, 2, 4, 6
             parts.append(f"flows.{2 * int(m.group(1))}")
+            continue
+        m = re.fullmatch(r"mrfs_(\d+)_(\d+)", p)
+        if m:
+            parts.append(f"mrfs.{m.group(1)}.{m.group(2)}")
+            continue
+        m = re.fullmatch(r"(adain1|res|adain2)_(\d+)", p)
+        if m:
+            parts.append(f"blocks.{m.group(2)}.{_PARALLEL[m.group(1)]}")
+            continue
+        if p == "m_source_merge":
+            parts.append("m_source.merge.0")
             continue
         m = re.fullmatch(r"(norm_layers_[12]|" + "|".join(_INDEXED) + r")_(\d+)", p)
         parts.append(f"{m.group(1)}.{m.group(2)}" if m else p)
@@ -107,8 +123,33 @@ def synthesizer_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
         key = _synth_key(path)
         v = np.asarray(v, dtype=np.float32)
         if key.endswith(".weight") and v.ndim == 3:
-            v = _convtr1d(v) if re.search(r"(^|\.)ups\.\d+\.weight$", key) else _conv1d(v)
+            v = (_convtr1d(v) if re.search(r"(^|\.)(ups|upsamples)\.\d+\.weight$", key)
+                 else _conv1d(v))
         out[key] = torch.from_numpy(np.array(v))
+    return out
+
+
+_PARALLEL_NAMES = {str(v): k for k, v in _PARALLEL.items()}
+
+
+def synthesizer_to_jax(state: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """The inverse of `synthesizer_from_jax`: a port Synthesizer state dict
+    -> `rvc_tpu`'s flat '/'-joined parameter paths in its layouts, which
+    `save_params` writes as a native `.safetensors`."""
+    out = {}
+    for key, v in state.items():
+        v = v.detach().float().cpu().numpy()
+        key = re.sub(r"\.gamma$", ".weight", re.sub(r"\.beta$", ".bias", key))
+        key = re.sub(r"flows\.(\d+)\.", lambda m: f"flows_{int(m.group(1)) // 2}.", key)
+        key = re.sub(r"mrfs\.(\d+)\.(\d+)\.", r"mrfs_\1_\2.", key)
+        key = re.sub(r"blocks\.(\d+)\.([012])\.",
+                     lambda m: f"{_PARALLEL_NAMES[m.group(2)]}_{m.group(1)}.", key)
+        key = key.replace("m_source.merge.0.", "m_source_merge.")
+        key = re.sub(r"(norm_layers_[12]|" + "|".join(_INDEXED) + r")\.(\d+)\.", r"\1_\2.", key)
+        if v.ndim == 3 and key.endswith(".weight"):   # back to (K, Cin, Cout)
+            transposed = re.search(r"(^|\.)(ups|upsamples)_\d+\.weight$", key)
+            v = v.transpose(2, 0, 1) if transposed else v.transpose(2, 1, 0)
+        out[key.replace(".", "/")] = np.ascontiguousarray(v)
     return out
 
 
@@ -347,10 +388,17 @@ def fcpe_from_pth(sd: Mapping) -> Dict[str, torch.Tensor]:
     return _tensors({k: v for k, v in fused.items() if _FCPE_KEYS.fullmatch(k)})
 
 
-# the layers upstream keeps under weight norm (`rvc/lib/algorithm`)
+# the layers upstream keeps under weight norm (`rvc/lib/algorithm`): the
+# flow's WaveNets; the NSF decoder's ups and resblocks; the MRF decoder's
+# upsamples and MRF convs; RefineGAN's pre_conv, mel_conv, downsample blocks
+# and ParallelResBlock convs (not its conv_post, cond or AdaIN weights)
 _WEIGHT_NORM = re.compile(
     r"(flow\.flows\.\d+\.enc\.(?:in_layers\.\d+|res_skip_layers\.\d+|cond_layer)"
-    r"|dec\.ups\.\d+|dec\.resblocks\.\d+\.convs[12]\.\d+)\.weight")
+    r"|dec\.ups\.\d+|dec\.resblocks\.\d+\.convs[12]\.\d+"
+    r"|dec\.upsamples\.\d+|dec\.mrfs\.\d+\.\d+\.layers\.\d+\.conv[12]"
+    r"|dec\.(?:pre_conv|mel_conv)|dec\.downsample_blocks\.\d+"
+    r"|dec\.upsample_conv_blocks\.\d+\.(?:input_conv|blocks\.\d+\.1\.convs[12]\.\d+)"
+    r")\.weight")
 
 
 def export_pth(state: Mapping[str, torch.Tensor], cfg, path: str, *,

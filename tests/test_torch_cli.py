@@ -1,7 +1,8 @@
 """`rvc_tpu_torch.cli` on the CPU: `infer` and `batch_infer` with a `.pth`
 and an `.index` that the JAX package wrote, against `RVC(...).infer_file`
-on the same files, with the pitch methods' flags too. The voice model is
-narrow but takes HuBERT's 768-wide
+on the same files, with the pitch methods' flags too (the post-processing
+and export flags: `test_torch_cli_postfx.py`). The voice model is narrow
+but takes HuBERT's 768-wide
 features, as upstream v2 models do; HuBERT and RMVPE are the seeded random
 full-size modules that `RVC` builds when no checkpoint is found."""
 
@@ -43,6 +44,18 @@ def files(tmp_path_factory):
     feats = np.random.default_rng(4).standard_normal((400, 768)).astype(np.float32)
     JR.write_faiss_index(JR.build_index(feats, seed=0, kmeans_iters=4), str(root / "model.index"))
     return root
+
+
+@pytest.fixture(scope="module", autouse=True)
+def two_threads():
+    """The full-size HuBERT and RMVPE run on two threads, beside the
+    suite's other workers."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)
@@ -120,17 +133,6 @@ def test_unknown_f0_method_fails(files, tmp_path, capsys):
               str(tmp_path / "o.wav"), *_model_args(files), "--f0_method", "bogus"])
     assert exit_info.value.code == 2
     assert "invalid f0 method 'bogus'" in capsys.readouterr().err
-    assert not (tmp_path / "o.wav").exists()
-
-
-@pytest.mark.parametrize("flags", [["--split_audio"], ["--export_format", "MP3"],
-                                   ["--reverb"], ["--gain_db", "3"]],
-                         ids=lambda f: f[0])
-def test_flags_not_ported_fail(files, tmp_path, flags, capsys):
-    with pytest.raises(SystemExit):
-        main(["infer", "--input_path", str(files / "in" / "a.wav"), "--output_path",
-              str(tmp_path / "o.wav"), *_model_args(files), *flags])
-    assert "not ported" in capsys.readouterr().err
     assert not (tmp_path / "o.wav").exists()
 
 

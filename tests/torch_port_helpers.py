@@ -53,23 +53,27 @@ def numpy_state(module: torch.nn.Module) -> dict:
 
 
 @lru_cache(maxsize=None)
-def synthesizers(seed: int = 0, use_f0: bool = True, ups_gain: float = 1.0):
+def synthesizers(seed: int = 0, use_f0: bool = True, ups_gain: float = 1.0,
+                 vocoder: str = "HiFi-GAN"):
     """(port Synthesizer, JAX Synthesizer, its JAX params); use_f0=False
-    gives the f0-less model (plain HiFi-GAN decoder). The decoder's
+    gives the f0-less model (plain HiFi-GAN decoder); an f0 model takes
+    `vocoder`'s decoder (c = 64, rates (10, 8, 2, 2)). The decoder's
     upsampling weights are N(0, 0.01) at init, which leaves the NSF
-    decoder's output to its sine source; ups_gain scales them so that the
-    waveform follows the content features too."""
+    decoder's output to its sine source; ups_gain scales those of the
+    NSF and plain HiFi-GAN so that the waveform follows the content
+    features too."""
     from rvc_tpu.models.synthesizer import build_synthesizer as jax_build
     from rvc_tpu_torch.models.synthesizer import build_synthesizer
 
+    args = dict(SMALL_SYNTH_ARGS, model_use_f0=use_f0, model_vocoder=vocoder)
     torch.manual_seed(seed)
-    port = build_synthesizer(port_get_config(32000, **SMALL_SYNTH_ARGS,
-                                             model_use_f0=use_f0)).eval()
-    with torch.no_grad():
-        for up in port.dec.ups:
-            up.weight.mul_(ups_gain)
+    port = build_synthesizer(port_get_config(32000, **args)).eval()
+    if ups_gain != 1.0:
+        with torch.no_grad():
+            for up in port.dec.ups:
+                up.weight.mul_(ups_gain)
     params = W.convert_synthesizer_state_dict(numpy_state(port))
-    return port, jax_build(get_config(32000, **SMALL_SYNTH_ARGS, model_use_f0=use_f0)), params
+    return port, jax_build(get_config(32000, **args)), params
 
 
 @lru_cache(maxsize=None)
