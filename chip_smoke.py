@@ -87,9 +87,32 @@ Phases, one JSON line each (a `kernel` line per kernel call):
             B = 8 dispatch's stages and every kernel call held against its
             plain version (K3 / K4 with their grid), and one window at B = 8
             against B = 1, noise off
+  realtime  `VoiceChanger` on the main path's model at the reference's
+            session (read_chunk_size 192 = 512 ms blocks, crossfade 0.1 s,
+            extra 0.5 s, rmvpe, fused; the gate at -90 dB, since the
+            reference's default of 0 dB gates any block under RMS 1): 40
+            blocks of the chirp after 3 warm ones, `on_request` ms
+            (median, p95, max) against the 512 ms budget, launches per block
+            (K1 27, K2 9, K3 6, K4 1), ms of the block program and its stages
+            (CUDA events around one call) with each stage's trace (kernels,
+            busy ms) and host ms of the host's parts, torch.profiler over one
+            block (CUDA kernels, copies, busy ms, the top kernels), and every kernel
+            call of one block held against its plain version (with grid) and
+            timed beside its bound
+  realtime_checks  the staged block against the fused one (corr > 0.999,
+            atol 5e-3); three silent blocks (zeros, no launch); 4 blocks on
+            the card against the port's CPU path, noise off (corr > 0.99);
+            index_rate 0.75 on the retrieval phase's index (ms per block, beside
+            a fresh engine without it on the same blocks);
+            `VoiceChangerPool` at N = 1, 4, 16 (step ms, launches per step,
+            real-time streams per card = N x 512 / step ms; every kernel
+            call of one N = 16 step held, with grid); 10 blocks over
+            `RealtimeSocketServer` on 127.0.0.1 (ms per round trip; replies
+            within 1e-4 of an in-process engine)
 Then the `kernels` summary line (per kernel: the sums over its calls; the
 launches of each path's run beside the main path's, `staged_crepe`,
-`staged_rmvpe`, `postfx`, `mrf`, `refinegan` and `longform` among them),
+`staged_rmvpe`, `postfx`, `mrf`, `refinegan` and `longform` among them;
+`realtime` per block and `realtime_pool` per step at N = 16),
 the card line, and
 last {"ok": true, "device": {...}}. Any failed check raises: the exit code
 is non-zero and the last line is not printed. Without a CUDA device, or
@@ -407,6 +430,43 @@ def check_calls(calls: list) -> list:
         checked.append((fn, args, kwargs, plain, a, desc, cmp))
         del got, ref
     return checked
+
+
+def held_calls(calls: list, time_them: bool = False) -> dict:
+    """check_calls over one block's recorded wrapper calls, per kernel: the
+    calls, the worst comparison numbers, the grid (K3, K4), and with
+    time_them the ms of the kernel and of its plain version summed over
+    the calls (one call between CUDA events, median of 5) beside the bound."""
+    import torch
+
+    with torch.inference_mode():
+        checked = check_calls(calls)
+        held = {}
+        for fn, args, kwargs, plain, a, desc, cmp in checked:
+            name = fn.__name__
+            h = held.setdefault(name, {"calls": 0, "max_abs": 0.0, "rel_l2": 0.0, "inputs": []})
+            h["calls"] += 1
+            shape = desc.get("x", desc.get("q", desc.get("audio")))
+            if shape not in h["inputs"]:
+                h["inputs"].append(shape)
+            for k in ("max_abs", "rel_l2", "emu_rel_l2", "emu_update_rel_l2", "excess",
+                      "plain_f32_excess", "plain_f32_vs_f64_max_abs",
+                      "plain_f32_vs_f64_rel_l2", "vs_plain_f32_max_abs"):
+                if k in cmp:
+                    h[k] = max(h[k], cmp[k]) if k in h else cmp[k]
+            if name in ("rel_attention", "log_mel"):
+                h["grid"] = kernel_grid(name, a)
+            if time_them:
+                flop, nbytes = work(name, a)
+                h["ms"] = h.get("ms", 0.0) + cuda_ms(lambda: fn(*args, **kwargs))
+                h["plain_ms"] = h.get("plain_ms", 0.0) + cuda_ms(lambda: plain(*args, **kwargs))
+                h["flop"] = h.get("flop", 0) + flop
+                h["bytes"] = h.get("bytes", 0) + nbytes
+    for name, h in held.items():
+        if time_them:
+            h["bound_ms"], h["bound_by"] = bound(h.pop("flop"), h.pop("bytes"),
+                                                 KERNELS[name]["peak"])
+    return held
 
 
 def phase_kernels(calls: list, launches: dict) -> list:
@@ -733,16 +793,8 @@ def phase_f0less(index_path: str, work: str) -> dict:
         raise AssertionError(f"the f0-less path launched {launches}: K1-K3 > 0, K4 = 0 expected")
     with record_calls() as calls:
         rvc.infer(clip, index_rate=INDEX_RATE)
-    with torch.inference_mode():
-        checked = check_calls(calls)
-    held = {}
-    for fn, _, _, _, _, _, cmp in checked:
-        h = held.setdefault(fn.__name__, {"calls": 0, "max_abs": 0.0, "rel_l2": 0.0})
-        h["calls"] += 1
-        for k in ("max_abs", "rel_l2", "emu_rel_l2", "emu_update_rel_l2"):
-            if k in cmp:
-                h[k] = max(h.get(k, 0.0), cmp[k])
-    del calls, checked
+    held = held_calls(calls)
+    del calls
     emit({"phase": "f0less", "config": "get_config(40000, model_use_f0=False)",
           "decoder_channels": [m.out_channels for m in rvc.pipeline.synthesizer.dec.ups],
           "clip_s": CLIP_S, "index_rate": INDEX_RATE, "wall_ms": wall_ms,
@@ -927,16 +979,8 @@ def phase_pitch(rvc, work: str) -> dict:
     # every kernel call of one staged crepe conversion against its plain version
     with record_calls() as calls:
         rvc.infer(clip, f0_method="crepe")
-    with torch.inference_mode():
-        checked = check_calls(calls)
-    held = {}
-    for fn, _, _, _, _, _, cmp in checked:
-        h = held.setdefault(fn.__name__, {"calls": 0, "max_abs": 0.0, "rel_l2": 0.0})
-        h["calls"] += 1
-        for k in ("max_abs", "rel_l2", "emu_rel_l2", "emu_update_rel_l2"):
-            if k in cmp:
-                h[k] = max(h.get(k, 0.0), cmp[k])
-    del calls, checked
+    held = held_calls(calls)
+    del calls
 
     # the staged crepe-tiny waveform on the card against the host, source noise off
     short = test_clip(PARITY_S, SEED + 1)
@@ -1428,22 +1472,8 @@ def phase_longform(rvc) -> dict:
     t0 = time.perf_counter()
     with record_calls() as calls:
         bc.convert_batch(batch)
-    with torch.inference_mode():
-        checked = check_calls(calls)
-    held = {}
-    for fn, _, _, _, a, desc, cmp in checked:
-        name = fn.__name__
-        h = held.setdefault(name, {"calls": 0, "max_abs": 0.0, "rel_l2": 0.0, "inputs": []})
-        h["calls"] += 1
-        h["inputs"].append(desc.get("x", desc.get("q", desc.get("audio"))))
-        for k in ("max_abs", "rel_l2", "emu_rel_l2", "emu_update_rel_l2", "excess",
-                  "plain_f32_excess", "plain_f32_vs_f64_max_abs", "plain_f32_vs_f64_rel_l2",
-                  "vs_plain_f32_max_abs"):
-            if k in cmp:
-                h[k] = max(h[k], cmp[k]) if k in h else cmp[k]
-        if name in ("rel_attention", "log_mel"):
-            h["grid"] = kernel_grid(name, a)
-    del calls, checked
+    held = held_calls(calls)
+    del calls
     check_s = time.perf_counter() - t0
 
     # rows do not mix: one window at B = 8 against the same window alone
@@ -1459,6 +1489,355 @@ def phase_longform(rvc) -> dict:
     emit({"phase": "longform_b8", "batch_size": LONG_BATCH, "window_samples": batch.shape[1],
           "dispatch_ms": stages, "checked": held, "check_s": check_s, "b8_vs_b1": rows})
     return launches
+
+
+# ---------------------------------------------------------------------------
+# realtime: VoiceChanger block by block, the pool, the TCP server
+# ---------------------------------------------------------------------------
+
+RT_WARM, RT_BLOCKS = 3, 40            # 40 blocks of 512 ms: 20.5 s of the chirp
+RT_INDEX_BLOCKS = 10
+RT_BUDGET_MS = 512.0                  # one block of 192 x 128 samples at 48 kHz
+RT_GATE_DB = -90                      # the reference's default of 0 dB gates RMS < 1
+POOL_NS, POOL_STEPS = (1, 4, 16), 8
+TCP_BLOCKS = 10
+RT_LAUNCHES = {"resblock_group": 27, "resblock_chain": 9, "rel_attention": 6, "log_mel": 1}
+
+
+def rt_clip48(n_blocks: int, block: int, seed: int):
+    """The test chirp (`test_clip`) at 48 kHz, n_blocks blocks long."""
+    from rvc_tpu_torch.utils import audio as audio_utils
+
+    seconds = n_blocks * block / 48000
+    return audio_utils.resample(test_clip(seconds, seed), 16000, 48000)[: n_blocks * block]
+
+
+def percentiles(ms: list) -> dict:
+    import numpy as np
+
+    return {"median": float(np.median(ms)), "p95": float(np.percentile(ms, 95)),
+            "max": float(np.max(ms))}
+
+
+def stream_blocks(vc, clip, n_warm: int, n: int, **kwargs) -> tuple:
+    """(per-block on_request ms, outputs, launches per block) of n blocks
+    after n_warm, the counts set to 0 just before the n and read just
+    after; every output finite and block_frame long."""
+    import numpy as np
+
+    from rvc_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+
+    bf = vc.block_frame
+    for i in range(n_warm):
+        vc.on_request(clip[i * bf: (i + 1) * bf], **kwargs)
+    reset_launches()
+    ms, outs = [], []
+    for i in range(n_warm, n_warm + n):
+        out, _, timings = vc.on_request(clip[i * bf: (i + 1) * bf], **kwargs)
+        if out.shape != (bf,) or not np.isfinite(out).all():
+            raise AssertionError(f"block {i}: {out.shape}, finite={np.isfinite(out).all()}")
+        ms.append(timings[1])
+        outs.append(out)
+    launches = {k: v / n for k, v in LAUNCHES.items()}
+    return ms, outs, launches
+
+
+def block_stages(vc) -> dict:
+    """Ms (median CUDA events around one call, the host's launch work
+    included) of the block program and of its stages on the session's
+    buffer, each stage's trace (kernels, busy ms); host ms of the host's
+    parts."""
+    import numpy as np
+    import torch
+
+    from rvc_tpu_torch.pipelines.offline import coarse_f0_torch
+    from rvc_tpu_torch.realtime.core import sola_offset_scipy
+    from rvc_tpu_torch.utils import audio as audio_utils
+    from rvc_tpu_torch.utils.device import to_device
+
+    rt = vc.vc_model
+    p = rt.rvc.pipeline
+    fn = rt._get_block_program(False)
+    L, F = len(rt.convert_buffer), rt.convert_feature_size
+    buf = np.pad(rt.convert_buffer, (0, rt._block_pad), mode="reflect")
+    st = {}
+    with torch.inference_mode():
+        audio = to_device(buf[None], p.device)
+        state, sid = rt._pitchf_dev, rt._sid_dev
+        tail = audio[:, rt.silence_front_frames * 160: L]
+        st["block program"] = cuda_ms(lambda: fn(audio, state, sid, 0.5, 0.0, 0.0))
+        st["  tail f0 (K4, RMVPE)"] = cuda_ms(lambda: p.f0(tail, 0.0, 0.0))
+        st["  HuBERT"] = cuda_ms(lambda: p.hubert(audio, output_hidden_states=True))
+        feats = p.hubert(audio, output_hidden_states=True)
+        t_feat = feats.shape[1] * 2
+        pf = torch.nn.functional.pad(state[:, :t_feat], (0, max(0, t_feat - F)))
+        lengths = torch.full((1,), min(F, t_feat), device=p.device)
+        st["  synthesizer (K3, K1, K2)"] = cuda_ms(
+            lambda: p._synthesize(feats, feats, lengths, sid, 0.5, coarse_f0_torch(pf), pf))
+        traces = {"tail f0": trace_one(lambda: p.f0(tail, 0.0, 0.0)),
+                  "HuBERT": trace_one(lambda: p.hubert(audio, output_hidden_states=True)),
+                  "synthesizer": trace_one(lambda: p._synthesize(
+                      feats, feats, lengths, sid, 0.5, coarse_f0_torch(pf), pf))}
+    block48 = np.zeros(vc.block_frame, np.float32)
+    conv = np.random.default_rng(SEED).standard_normal(
+        vc.crossfade_frame + vc.sola_search_frame).astype(np.float32)
+
+    def host_ms(f, reps: int = 20) -> float:
+        ts = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            f()
+            ts.append(1e3 * (time.perf_counter() - t0))
+        return float(np.median(ts))
+
+    def upload():
+        to_device(buf[None], p.device)
+        torch.cuda.synchronize()
+
+    host = {"resample 48k -> 16k": host_ms(lambda: audio_utils.resample(block48, 48000, 16000)),
+            "reflect pad": host_ms(lambda: np.pad(rt.convert_buffer, (0, rt._block_pad),
+                                                  mode="reflect")),
+            "upload (pinned, synchronised)": host_ms(upload),
+            "SOLA (scipy)": host_ms(lambda: sola_offset_scipy(conv, vc.sola_buffer))}
+    return {"device_ms": st, "traces": traces, "host_ms": host, "t_feat": t_feat}
+
+
+def trace_one(fn, top: int = 0) -> dict:
+    """torch.profiler over one fn() and a synchronize: the CUDA kernels and
+    copies it ran, their busy ms, the span from the first to the last, and
+    with top > 0 the top kernels by busy ms ({name: [count, ms]})."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev:
+        return {"note": "the trace holds no device events: not measured"}
+    copies = [e for e in dev if e.name.startswith(("Memcpy", "Memset"))]
+    kernels = [e for e in dev if e not in copies]
+    out = {"cuda_kernels": len(kernels), "copies": len(copies),
+           "kernel_busy_ms": sum(e.time_range.elapsed_us() for e in kernels) / 1e3,
+           "device_span_ms": (max(e.time_range.end for e in dev)
+                              - min(e.time_range.start for e in dev)) / 1e3,
+           "copy_ms": sum(e.time_range.elapsed_us() for e in copies) / 1e3}
+    if top:
+        by_name = {}
+        for e in kernels:
+            key = e.name.replace("(anonymous namespace)::", "")
+            name = re.match(r"(?:void\s+)?(?:[\w:]*::)?(\w+)", key).group(1)
+            c = by_name.setdefault(name, [0, 0.0])
+            c[0] += 1
+            c[1] += e.time_range.elapsed_us() / 1e3
+        out["top_kernels"] = dict(sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top])
+    return out
+
+
+def tcp_round_trip(rvc, blocks) -> dict:
+    """RealtimeSocketServer on 127.0.0.1 at a free port with a per-connection
+    VoiceChanger: the blocks round trip over one connection (ms each, the
+    client's clock); the replies against an in-process VoiceChanger fed the
+    same blocks (max |d| <= 1e-4)."""
+    import asyncio
+    import socket
+    import struct
+
+    import numpy as np
+
+    from rvc_tpu_torch.realtime.core import VoiceChanger
+    from rvc_tpu_torch.realtime.server import RealtimeSocketServer
+
+    def factory():
+        return VoiceChanger(rvc, silent_threshold=RT_GATE_DB)
+
+    srv = RealtimeSocketServer(vc_factory=factory, index_rate=0.0)
+
+    def client(port):
+        outs, ms = [], []
+        with socket.create_connection(("127.0.0.1", port), timeout=60) as s:
+            for b in blocks:
+                data = np.asarray(b, "<f4").tobytes()
+                t0 = time.perf_counter()
+                s.sendall(struct.pack("<I", len(data)) + data)
+                (n,) = struct.unpack("<I", s.recv(4, socket.MSG_WAITALL))
+                buf = b""
+                while len(buf) < n:
+                    buf += s.recv(n - len(buf))
+                ms.append(1e3 * (time.perf_counter() - t0))
+                outs.append(np.frombuffer(buf, dtype="<f4"))
+            s.sendall(struct.pack("<I", 0))
+        return outs, ms
+
+    async def run():
+        server = await asyncio.start_server(srv._handle, "127.0.0.1", 0)
+        try:
+            port = server.sockets[0].getsockname()[1]
+            return port, await asyncio.get_running_loop().run_in_executor(None, client, port)
+        finally:
+            server.close()
+            await server.wait_closed()
+
+    port, (outs, ms) = asyncio.run(asyncio.wait_for(run(), timeout=300))
+    vc = factory()
+    ref = [vc.on_request(b, index_rate=0.0)[0] for b in blocks]
+    max_abs = max(float(np.abs(o - r).max()) for o, r in zip(outs, ref))
+    if not max_abs <= 1e-4 or any(o.shape != r.shape for o, r in zip(outs, ref)):
+        raise AssertionError(f"TCP replies against the in-process engine: max |d| {max_abs}")
+    return {"port": port, "blocks": len(blocks), "ms": percentiles(ms[1:]),
+            "first_block_ms": ms[0], "max_abs_vs_in_process": max_abs}
+
+
+def phase_realtime(rvc, cpu_rvc, index_path: str) -> dict:
+    """The realtime engine on the main path's model at the reference's
+    session defaults (read_chunk_size 192, crossfade 0.1 s, extra 0.5 s,
+    rmvpe, the fused block path; the gate at -90 dB). Returns {path:
+    launches per block (per step for the pool at its largest N)}."""
+    import numpy as np
+    import torch
+
+    from rvc_tpu_torch.ops.kernels import LAUNCHES, record_calls, reset_launches
+    from rvc_tpu_torch.realtime.core import VoiceChanger
+    from rvc_tpu_torch.realtime.pool import VoiceChangerPool
+    from rvc_tpu_torch.retrieval import read_faiss_index
+
+    p = rvc.pipeline
+    p.source_noise = True
+    vc = VoiceChanger(rvc, silent_threshold=RT_GATE_DB)
+    rt, bf = vc.vc_model, vc.block_frame
+    clip = rt_clip48(RT_WARM + RT_BLOCKS, bf, SEED)
+    t0 = time.perf_counter()
+    vc.on_request(clip[:bf], index_rate=0.0)
+    first_ms = 1e3 * (time.perf_counter() - t0)
+    ms, outs, launches = stream_blocks(vc, clip, RT_WARM, RT_BLOCKS, index_rate=0.0)
+    if launches != RT_LAUNCHES:
+        raise AssertionError(f"a block launched {launches}: want {RT_LAUNCHES}")
+    if not np.median(ms) < RT_BUDGET_MS:
+        raise AssertionError(f"median block {np.median(ms)} ms over the {RT_BUDGET_MS} budget")
+    geometry = {"block_48k": bf, "convert_16k": len(rt.convert_buffer),
+                "padded_16k": len(rt.convert_buffer) + rt._block_pad,
+                "F": rt.convert_feature_size, "skip_head": rt.skip_head,
+                "return_length": rt.return_length, "silence_front": rt.silence_front_frames}
+    stages = block_stages(vc)
+    prof = trace_one(lambda: vc.on_request(clip[:bf], index_rate=0.0), top=10)
+    with record_calls() as calls:
+        rt.inference(clip[bf: 2 * bf], index_rate=0.0)
+    t0 = time.perf_counter()
+    held = held_calls(calls, time_them=True)
+    check_s = time.perf_counter() - t0
+    del calls
+    emit({"phase": "realtime", "session": "VoiceChanger(rvc, silent_threshold=-90): "
+          "read_chunk_size 192, crossfade 0.1 s, extra 0.5 s, rmvpe, fused",
+          "geometry": geometry, "first_block_ms": first_ms, "blocks": RT_BLOCKS,
+          "on_request_ms": percentiles(ms), "budget_ms": RT_BUDGET_MS,
+          "realtime_x": RT_BUDGET_MS / float(np.median(ms)),
+          "launches_per_block": launches, "stages": stages, "profile_one_block": prof,
+          "kernels_one_block": held, "check_s": check_s,
+          "peak": float(max(np.abs(o).max() for o in outs))})
+
+    # checks: staged against fused, silence, the card against the host
+    p.source_noise = False
+    checks = {}
+    eng = {k: VoiceChanger(rvc, silent_threshold=RT_GATE_DB).vc_model for k in ("0", "1")}
+    corr = []
+    for i in range(4):
+        b = clip[i * bf: (i + 1) * bf]
+        got = {}
+        for k, e in eng.items():
+            os.environ["RVC_TPU_RT_FUSED"] = k
+            got[k] = e.inference(b, index_rate=0.0)[0]
+        os.environ["RVC_TPU_RT_FUSED"] = "1"
+        corr.append(float(np.corrcoef(got["0"], got["1"])[0, 1]))
+        max_abs = float(np.abs(got["0"] - got["1"]).max())
+        if not (corr[-1] > 0.999 and max_abs <= 5e-3):
+            raise AssertionError(f"block {i}: staged against fused corr {corr[-1]}, "
+                                 f"max |d| {max_abs}")
+    checks["staged_vs_fused"] = {"blocks": 4, "min_corr": min(corr), "max_abs_last": max_abs}
+
+    sil = VoiceChanger(rvc, silent_threshold=RT_GATE_DB)
+    zeros = np.zeros(bf, np.float32)
+    sil.on_request(clip[:bf], index_rate=0.0)
+    sil.on_request(zeros, index_rate=0.0)        # the volume window still holds speech
+    before = dict(LAUNCHES)
+    silent_ms = []
+    for _ in range(3):            # the engine's blocks: SOLA fades the last sound out
+        t0 = time.perf_counter()
+        out, vol = sil.vc_model.inference(zeros, index_rate=0.0)
+        silent_ms.append(1e3 * (time.perf_counter() - t0))
+        if out.any() or vol != 0.0:
+            raise AssertionError("a silent block gave sound")
+    if dict(LAUNCHES) != before:
+        raise AssertionError(f"silent blocks launched {dict(LAUNCHES)} after {before}")
+    owed = sil.vc_model._pending_zero_frames
+    resumed = sil.on_request(clip[bf: 2 * bf], index_rate=0.0)[0]
+    if dict(LAUNCHES) == before or not np.isfinite(resumed).all():
+        raise AssertionError("the speech block after the silence did not convert")
+    checks["silence"] = {"silent_blocks": 3, "launches_during": 0, "owed_frames": owed,
+                         "silent_ms": silent_ms, "resumed_finite": True}
+
+    gpu, cpu = (VoiceChanger(r, silent_threshold=RT_GATE_DB).vc_model for r in (rvc, cpu_rvc))
+    t0 = time.perf_counter()
+    corr = []
+    for i in range(4):
+        b = clip[i * bf: (i + 1) * bf]
+        g, c = gpu.inference(b, index_rate=0.0)[0], cpu.inference(b, index_rate=0.0)[0]
+        corr.append(float(np.corrcoef(g, c)[0, 1]))
+        if not corr[-1] > 0.99:
+            raise AssertionError(f"block {i}: the card against the host, corr {corr[-1]}")
+    checks["gpu_vs_cpu"] = {"blocks": 4, "min_corr": min(corr), "cpu_seconds":
+                            time.perf_counter() - t0}
+    p.source_noise = True
+
+    # retrieval: the retrieval phase's 60,000-vector index at index_rate 0.75,
+    # beside a fresh engine without it on the same blocks just before
+    pms, _, _ = stream_blocks(VoiceChanger(rvc, silent_threshold=RT_GATE_DB), clip, RT_WARM,
+                              RT_INDEX_BLOCKS, index_rate=0.0)
+    rvc.index = read_faiss_index(index_path)
+    vci = VoiceChanger(rvc, silent_threshold=RT_GATE_DB)
+    ims, _, ilaunches = stream_blocks(vci, clip, RT_WARM, RT_INDEX_BLOCKS, index_rate=INDEX_RATE)
+    rvc.index = None
+    if ilaunches != RT_LAUNCHES:
+        raise AssertionError(f"a retrieval block launched {ilaunches}")
+    checks["retrieval"] = {"index_vectors": INDEX_N, "index_rate": INDEX_RATE,
+                           "blocks": RT_INDEX_BLOCKS, "on_request_ms": percentiles(ims),
+                           "plain_on_request_ms": percentiles(pms),
+                           "added_median_ms": float(np.median(ims) - np.median(pms)),
+                           "launches_per_block": ilaunches}
+
+    # the pool: N streams, one batched block program a step
+    pool_out = {}
+    for n in POOL_NS:
+        pool = VoiceChangerPool(rvc, n, sids=[s % 2 for s in range(n)],
+                                silent_threshold=RT_GATE_DB)
+        streams = np.stack([np.roll(clip, 4801 * s) * (0.6 + 0.05 * (s % 8))
+                            for s in range(n)])
+        for i in range(2):
+            pool.process(streams[:, i * bf: (i + 1) * bf])
+        torch.cuda.synchronize()
+        reset_launches()
+        step_ms = []
+        for i in range(2, 2 + POOL_STEPS):
+            t0 = time.perf_counter()
+            out, _ = pool.process(streams[:, i * bf: (i + 1) * bf])
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            if out.shape != (n, bf) or not np.isfinite(out).all():
+                raise AssertionError(f"pool N = {n}: {out.shape}")
+        per_step = {k: v / POOL_STEPS for k, v in LAUNCHES.items()}
+        if per_step != RT_LAUNCHES:
+            raise AssertionError(f"pool N = {n}: a step launched {per_step}")
+        med = float(np.median(step_ms))
+        pool_out[n] = {"step_ms": percentiles(step_ms), "launches_per_step": per_step,
+                       "realtime_streams_per_card": n * RT_BUDGET_MS / med}
+        if n == POOL_NS[-1]:      # every kernel call of one step at the largest batch
+            with record_calls() as calls:
+                pool.process(streams[:, 2 * bf: 3 * bf])
+            pool_out[n]["kernels_one_step"] = held_calls(calls)
+            del calls
+        del pool
+    checks["tcp"] = tcp_round_trip(rvc, [clip[i * bf: (i + 1) * bf] for i in range(TCP_BLOCKS)])
+    emit({"phase": "realtime_checks", **checks, "pool": pool_out})
+    return {"realtime": launches, "realtime_pool": pool_out[POOL_NS[-1]]["launches_per_step"]}
 
 
 def main() -> int:
@@ -1532,7 +1911,6 @@ def main() -> int:
           "cpu_seconds": time.perf_counter() - t0})
     if not corr > 0.99:
         raise AssertionError(f"GPU vs CPU waveform corr {corr}")
-    del cpu_rvc
 
     # the model's files (.pth, .index) live in the git-ignored build directory
     with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as work:
@@ -1541,6 +1919,8 @@ def main() -> int:
         pitch_launches = phase_pitch(rvc, work)
         postfx_launches = phase_postfx(rvc, work)
         vocoder_launches = phase_vocoders(work)
+        realtime_launches = phase_realtime(rvc, cpu_rvc, index_path)
+    del cpu_rvc
     longform_launches = phase_longform(rvc)
     for entry, name in zip(summary, KERNELS):
         entry["launches_by_path"] = {"pipeline": launches[name],
@@ -1549,7 +1929,8 @@ def main() -> int:
                                      **{k: v[name] for k, v in pitch_launches.items()},
                                      "postfx": postfx_launches[name],
                                      **{k: v[name] for k, v in vocoder_launches.items()},
-                                     "longform": longform_launches[name]}
+                                     "longform": longform_launches[name],
+                                     **{k: v[name] for k, v in realtime_launches.items()}}
 
     emit({"kernels": summary})
     print(card, flush=True)

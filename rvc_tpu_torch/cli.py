@@ -1,5 +1,5 @@
-"""Command line of the port (counterpart of `rvc_tpu/cli.py`): the `infer`
-and `batch_infer` subcommands, with the reference's flag names and
+"""Command line of the port (counterpart of `rvc_tpu/cli.py`): the `infer`,
+`batch_infer` and `serve` subcommands, with the reference's flag names and
 defaults, plus `--device`.
 
     python -m rvc_tpu_torch.cli infer --input_path in.wav --output_path out.wav \\
@@ -12,6 +12,13 @@ harvest or hybrid[a+b+...]; `--f0_file` (one f0 per 10 ms frame, read with
 `--formant_shifting` and `--post_process` (with the ten effects' flags) run
 on the host around the conversion; `--export_format` MP3, FLAC, OGG or M4A
 writes through soundfile or the ffmpeg binary and fails when neither can.
+
+    python -m rvc_tpu_torch.cli serve --model_path model.pth --protocol tcp
+
+streams 48 kHz audio through the model block by block (`realtime/`): the
+length-prefixed float32 TCP protocol with one engine per connection, or
+(`--protocol ws`, the default, with the `websockets` package) the
+reference's ws-audio client protocol, with `--webui` the browser client.
 """
 
 from __future__ import annotations
@@ -38,6 +45,9 @@ _FX_VALUES = (
     ("delay_seconds", 0.5), ("delay_feedback", 0.0), ("delay_mix", 0.5),
 )
 _FX_KEYS = _FX_FLAGS + tuple(k for k, _ in _FX_VALUES)
+_EMBEDDERS = ("contentvec", "chinese-hubert-base", "japanese-hubert-base", "korean-hubert-base",
+              "custom")
+_DEVICE_HELP = "'cpu' runs the plain PyTorch path on the host (default: the CUDA card)"
 
 
 def _f0_method(value: str) -> str:
@@ -69,8 +79,7 @@ def _add_infer_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--sid", type=int, default=0)
     p.add_argument("--hubert_path", default=None)
     p.add_argument("--embedder_model", default="contentvec",
-                   choices=["contentvec", "chinese-hubert-base", "japanese-hubert-base",
-                            "korean-hubert-base", "custom"])
+                   choices=_EMBEDDERS)
     p.add_argument("--embedder_model_custom", default=None,
                    help="checkpoint path when --embedder_model custom")
     p.add_argument("--hop_length", type=int, default=160,
@@ -88,9 +97,7 @@ def _add_infer_args(p: argparse.ArgumentParser) -> None:
         p.add_argument(f"--{flag}", action="store_true")
     for flag, d in _FX_VALUES:
         p.add_argument(f"--{flag}", type=float, default=d)
-    p.add_argument("--device", default=None,
-                   help="'cpu' runs the plain PyTorch path on the host "
-                        "(default: the CUDA card)")
+    p.add_argument("--device", default=None, help=_DEVICE_HELP)
 
 
 def _infer_kwargs(args: argparse.Namespace) -> dict:
@@ -137,7 +144,62 @@ def cmd_batch_infer(args: argparse.Namespace) -> None:
     print(f"{len(files)} files converted")
 
 
-def main(argv=None) -> None:
+def cmd_serve(args: argparse.Namespace) -> None:
+    """Start a realtime conversion server (`rvc_tpu/cli.py:466-507`)."""
+    import asyncio
+
+    rvc = _load_rvc(args)
+    if args.protocol == "ws":
+        from rvc_tpu_torch.realtime.server import RealtimeWebSocketServer
+
+        server = RealtimeWebSocketServer(rvc=rvc, host=args.host, port=args.port)
+        if args.webui:
+            # browser client app: mic -> ws -> playback with session controls
+            from rvc_tpu_torch.realtime.webui import WebUIServer
+
+            ui = WebUIServer(host=args.host, port=args.webui_port,
+                             ws_url=f"ws://{args.host}:{args.port}")
+            ui.serve_in_thread()
+            print(f"web client on http://{args.host}:{args.webui_port}")
+    else:
+        from rvc_tpu_torch.realtime.core import VoiceChanger
+        from rvc_tpu_torch.realtime.server import RealtimeSocketServer
+
+        # per-connection engines: SOLA/pitch state is per-stream, so a
+        # shared VoiceChanger would corrupt concurrent TCP clients
+        def vc_factory():
+            return VoiceChanger(rvc, read_chunk_size=args.chunk_size,
+                                f0_method=args.f0_method, sid=args.sid)
+
+        server = RealtimeSocketServer(vc_factory=vc_factory, host=args.host, port=args.port)
+    print(f"serving {args.protocol} on {args.host}:{args.port} (ctrl-c to stop)", flush=True)
+    try:
+        asyncio.run(server.serve())
+    except KeyboardInterrupt:
+        print("stopped")
+
+
+def _add_serve_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--model_path", required=True)
+    p.add_argument("--index_path", default=None)
+    p.add_argument("--hubert_path", default=None)
+    p.add_argument("--embedder_model", default="contentvec",
+                   choices=_EMBEDDERS)
+    p.add_argument("--embedder_model_custom", default=None)
+    p.add_argument("--protocol", default="ws", choices=["ws", "tcp"])
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=6006)
+    p.add_argument("--chunk_size", type=int, default=192,
+                   help="TCP protocol block size (x128 samples @48 kHz)")
+    p.add_argument("--f0_method", default="rmvpe", type=_f0_method)
+    p.add_argument("--sid", type=int, default=0)
+    p.add_argument("--webui", action="store_true",
+                   help="also serve the browser client app (ws protocol)")
+    p.add_argument("--webui_port", type=int, default=6007)
+    p.add_argument("--device", default=None, help=_DEVICE_HELP)
+
+
+def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser("rvc-tpu-torch", description=__doc__,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
     sub = parser.add_subparsers(dest="command", required=True)
@@ -156,7 +218,14 @@ def main(argv=None) -> None:
     p.add_argument("--output_folder", required=True)
     p.set_defaults(fn=cmd_batch_infer)
 
-    args = parser.parse_args(argv)
+    p = sub.add_parser("serve", help="realtime conversion server (ws-audio or TCP protocol)")
+    _add_serve_args(p)
+    p.set_defaults(fn=cmd_serve)
+    return parser
+
+
+def main(argv=None) -> None:
+    args = build_parser().parse_args(argv)
     args.fn(args)
 
 

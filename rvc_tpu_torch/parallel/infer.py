@@ -35,6 +35,7 @@ import torch
 from torch.nn import functional as F
 
 from rvc_tpu_torch.pipelines.offline import SAMPLE_RATE, WINDOW, coarse_f0_torch
+from rvc_tpu_torch.utils.device import to_device
 
 
 class BatchConverter:
@@ -44,14 +45,6 @@ class BatchConverter:
     def __init__(self, rvc):
         self.rvc = rvc
         self.device = rvc.device
-
-    def _upload(self, array: np.ndarray) -> torch.Tensor:
-        """A host array on the device, copied from pinned memory without
-        waiting for the work queued before it."""
-        t = torch.from_numpy(np.ascontiguousarray(array))
-        if self.device.type == "cuda":
-            t = t.pin_memory()
-        return t.to(self.device, non_blocking=True)
 
     @torch.inference_mode()
     def convert_batch(self, audio_batch: np.ndarray, sids: Optional[np.ndarray] = None,
@@ -66,8 +59,9 @@ class BatchConverter:
         audio_batch = np.asarray(audio_batch, dtype=np.float32)
         if pad:
             audio_batch = np.pad(audio_batch, ((0, 0), (0, pad)))
-        audio = self._upload(audio_batch)
-        sid = self._upload(np.asarray(sids if sids is not None else np.zeros(B), np.int64))
+        audio = to_device(audio_batch, self.device)
+        sid = to_device(np.asarray(sids if sids is not None else np.zeros(B), np.int64),
+                        self.device)
         f0 = p.f0(audio, pitch_shift, 0.0)
         p_len0 = audio.shape[1] // WINDOW
         feats, _ = p._features(audio, p_len0, None, 0.0)

@@ -4,6 +4,7 @@ from __future__ import annotations
 
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 
@@ -32,3 +33,12 @@ def use_fp32_numerics() -> None:
     """
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on `device`; for a CUDA device copied from pinned memory
+    without waiting for the work queued before it."""
+    t = torch.from_numpy(np.ascontiguousarray(array))
+    if device.type == "cuda":
+        t = t.pin_memory()
+    return t.to(device, non_blocking=True)

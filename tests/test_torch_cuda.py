@@ -283,3 +283,85 @@ def test_convert_batch_matches_the_host(dev):
     assert got.shape == ref.shape == (3, 32000)
     for g, r in zip(got, ref):
         assert np.corrcoef(g, r)[0, 1] > 0.999
+
+
+# ----------------------------------------------------------------------------
+# realtime: the shapes of one block of the default session (read_chunk_size
+# 192, crossfade 0.1 s, extra 0.5 s): a 30,720-sample padded buffer, a
+# 10,880-sample tail (69 mel frames), t_feat 190 frames with 113 valid
+
+
+@pytest.mark.parametrize("B,lens", [(1, [113]), (16, [113] * 16)], ids=["B1", "B16"])
+def test_rel_attention_realtime_block(dev, B, lens):
+    g = _gen(dev, 190)
+    q, k, v = (torch.randn((B, 2, 190, 96), device=dev, generator=g) for _ in range(3))
+    ek, ev = (0.3 * torch.randn((1, 21, 96), device=dev, generator=g) for _ in range(2))
+    key_lens = torch.tensor(lens, device=dev, dtype=torch.int32)
+    got = KA.rel_attention(q, k, v, ek, ev, 10, key_lens)
+    ref = KA.rel_attention(*(x.cpu() for x in (q, k, v, ek, ev)), 10, key_lens.cpu()).to(dev)
+    valid = (torch.arange(190, device=dev)[None, :] < key_lens[:, None])[:, None, :, None]
+    torch.testing.assert_close(got * valid, ref * valid, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("B", [1, 16])
+def test_log_mel_realtime_tail(dev, B):
+    audio = 0.3 * torch.randn((B, 10880), device=dev, generator=_gen(dev, B))
+    got = KM.log_mel(audio)
+    assert got.shape == (B, 69, 128)
+    torch.testing.assert_close(got, KM.log_mel(audio.cpu()).to(dev), atol=2e-3, rtol=1e-3)
+
+
+def _realtime_clip(n_blocks: int, block: int, seed: int = 0):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    t = np.arange(n_blocks * block) / 48000
+    phase = 2 * np.pi * np.cumsum(140.0 + 40.0 * t) / 48000
+    return (0.4 * np.sin(phase) + 0.01 * rng.standard_normal(len(t))).astype(np.float32)
+
+
+def test_fused_realtime_block_matches_the_host(dev):
+    """The fused block path at the default session on the card (K1-K4 in
+    one block program) against the port's CPU path, same seeded weights,
+    noise off, 3 voiced blocks: waveform corr > 0.99 per block."""
+    import numpy as np
+
+    from rvc_tpu_torch.api import RVC
+    from rvc_tpu_torch.configs import get_config
+    from rvc_tpu_torch.realtime.core import VoiceChanger
+
+    cfg = get_config(32000, model_n_layers=1)
+    vcs = [VoiceChanger(RVC(config=cfg, device=d, source_noise=False), silent_threshold=-90)
+           for d in (dev, "cpu")]
+    block = vcs[0].block_frame
+    clip = _realtime_clip(3, block)
+    launches = dict(LAUNCHES)
+    for i in range(3):
+        b = clip[i * block: (i + 1) * block]
+        got, ref = (vc.vc_model.inference(b, index_rate=0.0)[0] for vc in vcs)
+        assert got.shape == ref.shape == (63 * 480,)        # return_length 63 frames
+        assert np.corrcoef(got, ref)[0, 1] > 0.99
+    assert all(LAUNCHES[k] > launches[k] for k in LAUNCHES)
+
+
+def test_pool_matches_single_streams_on_the_card(dev):
+    """VoiceChangerPool at N = 4 (one batched block program) against four
+    single VoiceChangers on the card, noise off: atol 5e-3 per stream."""
+    import numpy as np
+
+    from rvc_tpu_torch.api import RVC
+    from rvc_tpu_torch.configs import get_config
+    from rvc_tpu_torch.realtime.core import VoiceChanger
+    from rvc_tpu_torch.realtime.pool import VoiceChangerPool
+
+    rvc = RVC(config=get_config(32000, model_n_layers=1), device=dev, source_noise=False)
+    pool = VoiceChangerPool(rvc, 4, silent_threshold=-90)
+    singles = [VoiceChanger(rvc, silent_threshold=-90) for _ in range(4)]
+    block = pool.block_frame
+    streams = np.stack([_realtime_clip(2, block, seed=s) * (0.5 + 0.1 * s) for s in range(4)])
+    for i in range(2):
+        blocks = streams[:, i * block: (i + 1) * block]
+        pooled, _ = pool.process(blocks)
+        for s in range(4):
+            single, _, _ = singles[s].on_request(blocks[s], index_rate=0.0)
+            np.testing.assert_allclose(pooled[s], single, rtol=0, atol=5e-3)

@@ -34,7 +34,9 @@ def test_import_leaves_jax_out():
     code = ("import sys, rvc_tpu_torch.api, rvc_tpu_torch.cli, rvc_tpu_torch.retrieval, "
             "rvc_tpu_torch.ops.kernels.melspec, rvc_tpu_torch.ops.kernels.attention, "
             "rvc_tpu_torch.ops.kernels.resblock, rvc_tpu_torch.pitch, "
-            "rvc_tpu_torch.models.crepe, rvc_tpu_torch.models.fcpe\n"
+            "rvc_tpu_torch.models.crepe, rvc_tpu_torch.models.fcpe, rvc_tpu_torch.realtime, "
+            "rvc_tpu_torch.realtime.core, rvc_tpu_torch.realtime.pool, "
+            "rvc_tpu_torch.realtime.server, rvc_tpu_torch.realtime.webui\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax') or m.startswith('rvc_tpu.') or m == 'rvc_tpu']\n"
             "assert not bad, bad\n")
