@@ -109,10 +109,37 @@ Phases, one JSON line each (a `kernel` line per kernel call):
             call of one N = 16 step held, with grid); 10 blocks over
             `RealtimeSocketServer` on 127.0.0.1 (ms per round trip; replies
             within 1e-4 of an in-process engine)
+  train     a voice model made as users make one, at the 48 kHz model's full
+            width (random init from seed 0): 2 speakers x 3 seeded harmonic
+            utterances of 10 s through the port's AudioPreprocessor
+            (Automatic), FeatureExtractor (full-size random HuBERT and RMVPE,
+            K4 on the card, same-length groups of 8) and DatasetBuilder (with
+            the mute rows), then RVCTrainer at batch 8 for 2 epochs, a save
+            and a resume (params, moments, epoch, step equal), the `.pth`
+            export converting a 2 s clip through `RVC` on the card; K4's
+            launches over the extraction
+  train_step  one batch of that loader: 20 steps after 3 warm ones (median,
+            p95, steps/s, segment audio-s/s, peak memory), one step split by
+            CUDA events (G forward, G backward, G optimizer, D forward +
+            backward, D optimizer), torch.profiler over one step, launches
+            per step (K1 27, K2 9, K3 6; K1/K2 twice with checkpointing)
+  train_checks  30 warmup-mode steps on that batch with fixed segment starts
+            (the mel loss falls: the mean of the last 5 under the first 5);
+            every K1-K3 call of one step held forward at the bars above and
+            through its autograd Function against the plain version's
+            autograd (every input and weight gradient, rel_l2 < 1e-5); one
+            full-width G+D step at batch 2 on the card against the port's
+            CPU step with the same parameters, batch and draws (losses rel
+            2e-2; gradient corr > 0.99 per module against the CPU step with
+            K1/K2's bf16 forward emulated, and for all but the decoder
+            against the float32 one)
+  train_vocoder  the MRF HiFi-GAN and RefineGAN (v3 D) models: 2 steps each
+            after a warm one, split, launches (K3 only), memory, a trace
 Then the `kernels` summary line (per kernel: the sums over its calls; the
 launches of each path's run beside the main path's, `staged_crepe`,
 `staged_rmvpe`, `postfx`, `mrf`, `refinegan` and `longform` among them;
-`realtime` per block and `realtime_pool` per step at N = 16),
+`realtime` per block and `realtime_pool` per step at N = 16, `extract`
+over the train phase's extraction and `train_step` per step),
 the card line, and
 last {"ok": true, "device": {...}}. Any failed check raises: the exit code
 is non-zero and the last line is not printed. Without a CUDA device, or
@@ -121,6 +148,8 @@ run outside the repository, it fails before printing any result.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import inspect
 import json
 import math
@@ -1840,6 +1869,437 @@ def phase_realtime(rvc, cpu_rvc, index_path: str) -> dict:
     return {"realtime": launches, "realtime_pool": pool_out[POOL_NS[-1]]["launches_per_step"]}
 
 
+# ---------------------------------------------------------------------------
+# train: preprocess -> extract -> RVCTrainer at full width, the step timed
+# ---------------------------------------------------------------------------
+
+TRAIN_SPEAKERS, TRAIN_UTTS, TRAIN_UTT_S = 2, 3, 10.0     # 2 x 3 utterances of 10 s
+TRAIN_BATCH, TRAIN_EPOCHS = 8, 2
+TRAIN_WARM, TRAIN_TIMED = 3, 20
+TRAIN_DESCENT_STEPS = 30                                  # warmup mode, one fixed batch
+TRAIN_VOCODER_STEPS = 2
+TRAIN_PARITY_B = 2
+TRAIN_LAUNCHES = {"resblock_group": 27, "resblock_chain": 9, "rel_attention": 6, "log_mel": 0}
+TRAIN_GRAD_BAR = 1e-5          # each Function's gradients against the plain autograd's
+TRAIN_DEVICE = "cuda"          # a CPU rehearsal sets "cpu" and shrinks TRAIN_CFG
+TRAIN_CFG = {}                 # get_config(48000, ...) overrides; none: full width
+
+
+def make_dataset(root: str) -> str:
+    """TRAIN_SPEAKERS folders of TRAIN_UTTS seeded harmonic utterances at 48 kHz."""
+    from rvc_tpu_torch.utils import audio as audio_utils
+
+    utts = synth_utterances(TRAIN_SPEAKERS * TRAIN_UTTS, TRAIN_UTT_S, sr=48000)
+    data = os.path.join(root, "dataset")
+    for i, u in enumerate(utts):
+        d = os.path.join(data, str(i // TRAIN_UTTS))
+        os.makedirs(d, exist_ok=True)
+        audio_utils.save_wav(os.path.join(d, f"take{i % TRAIN_UTTS}.wav"), u, 48000)
+    return data
+
+
+def train_split(step, batch, generator) -> dict:
+    """One adversarial step split by CUDA events: G forward (the losses), G
+    backward (the sanitized gradients), G's optimizer, D forward and
+    backward, D's optimizer (ms each)."""
+    import torch
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    step.net_d.requires_grad_(False)
+    total, _, y_hat, real = step.g_losses(batch, generator)
+    ev[1].record()
+    grads = step.g_grads(total)
+    step.net_d.requires_grad_(True)
+    ev[2].record()
+    step.g_opt.step(grads)
+    ev[3].record()
+    loss = step.d_loss(real.detach(), y_hat.detach())
+    d_grads = torch.autograd.grad(loss, step.d_opt.params)
+    ev[4].record()
+    step.d_opt.step(d_grads)
+    ev[5].record()
+    ev[5].synchronize()
+    names = ("G forward", "G backward", "G optimizer", "D forward + backward", "D optimizer")
+    return {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
+
+
+def timed_steps(step, batch, generator, warm: int, n: int) -> tuple:
+    """(host ms of each of n steps after warm, every metric of them, the
+    launches of one step, peak memory GB); each step ends in a synchronize."""
+    import torch
+
+    from rvc_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+
+    for _ in range(warm):
+        step(batch, generator)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms, metrics = [], []
+    for i in range(n):
+        if i == 0:
+            reset_launches()
+        t0 = time.perf_counter()
+        m = step(batch, generator)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        if i == 0:
+            launches = dict(LAUNCHES)
+        metrics.append({k: float(v) for k, v in m.items()})
+    return ms, metrics, launches, torch.cuda.max_memory_allocated() / 1e9
+
+
+def check_finite(metrics: list, what: str) -> None:
+    bad = [(i, k, v) for i, m in enumerate(metrics) for k, v in m.items()
+           if not math.isfinite(v)]
+    if bad:
+        raise AssertionError(f"{what}: losses not finite {bad[:5]}")
+
+
+def function_gradients(calls: list) -> dict:
+    """Each recorded K1-K3 call of a training step through its autograd
+    Function and through the plain version's autograd on the same upstream
+    gradient (zero on K3's garbage rows): the worst rel_l2 per kernel over
+    every input and weight gradient (raises past TRAIN_GRAD_BAR)."""
+    import importlib
+
+    import torch
+
+    out = {}
+    for fn, args, kwargs in calls:
+        name = fn.__name__
+        plain = getattr(importlib.import_module(
+            f"rvc_tpu_torch.ops.kernels.{KERNELS[name]['module']}"), name + "_reference")
+        a = inspect.signature(fn).bind(*args, **kwargs)
+        a.apply_defaults()
+        a = dict(a.arguments)
+        keys = ["x", "weights"] if name == "resblock_group" else (
+            ["x", "w1", "b1", "w2", "b2"] if name == "resblock_chain" else
+            ["q", "k", "v", "emb_rel_k", "emb_rel_v"])
+
+        def leaves():
+            flat = []
+            for k in keys:
+                v = a[k]
+                if isinstance(v, tuple):
+                    flat += [t.detach().clone().requires_grad_() for t in v]
+                else:
+                    flat.append(v.detach().clone().requires_grad_())
+            return flat
+
+        def call(f, flat):
+            kw = dict(a)
+            if name == "resblock_group":
+                kw["x"], kw["weights"] = flat[0], tuple(flat[1:])
+            else:
+                kw.update(zip(keys, flat))
+            return f(**kw)
+
+        got_leaves, ref_leaves = leaves(), leaves()
+        y = call(fn, got_leaves)
+        g = torch.randn(y.shape, device=y.device,
+                        generator=torch.Generator(y.device).manual_seed(SEED))
+        if name == "rel_attention":
+            T = y.shape[2]
+            g = g * (torch.arange(T, device=y.device)[None, :]
+                     < a["key_lens"].to(y.device)[:, None])[:, None, :, None]
+        got = torch.autograd.grad(y, got_leaves, g)
+        ref = torch.autograd.grad(call(plain, ref_leaves), ref_leaves, g)
+        worst = max(rel_l2(x, r) for x, r in zip(got, ref))
+        h = out.setdefault(name, {"calls": 0, "grads": 0, "max_rel_l2": 0.0})
+        h["calls"] += 1
+        h["grads"] += len(got)
+        h["max_rel_l2"] = max(h["max_rel_l2"], worst)
+        if not worst < TRAIN_GRAD_BAR:
+            raise AssertionError(f"{name}: a gradient is {worst} (rel_l2) off the plain "
+                                 f"version's autograd (bar {TRAIN_GRAD_BAR})")
+    return out
+
+
+def step_grads(cfg, net_g, net_d, batch, draws) -> tuple:
+    """One adversarial step's losses and gradients (per G module, and D)
+    without the update: the port's TrainStep pieces."""
+    import torch
+
+    from rvc_tpu_torch.train.train_step import TrainStep, make_optimizers
+
+    g_opt, d_opt = make_optimizers(cfg, net_g, net_d)
+    step = TrainStep(cfg, net_g, net_d, g_opt, d_opt)
+    total, losses, y_hat, real = step.g_losses(batch, **draws)
+    by_module = {}
+    names = [n for n, _ in net_g.named_parameters()]
+    for n, gr in zip(names, step.g_grads(total)):
+        by_module.setdefault(n.split(".")[0], []).append(gr.detach().flatten().cpu())
+    d_loss = step.d_loss(real.detach(), y_hat.detach())
+    by_module["D"] = [gr.flatten().cpu() for gr in torch.autograd.grad(d_loss, d_opt.params)]
+    losses = {k: float(v.detach()) for k, v in losses.items()}
+    losses.update(loss_d=float(d_loss.detach()), loss_g_total=float(total.detach()))
+    return losses, {k: torch.cat(v).double() for k, v in by_module.items()}
+
+
+@contextlib.contextmanager
+def bf16_host():
+    """The decoder's K1/K2 calls on host tensors take the card's arithmetic:
+    their autograd Functions with the plain version's bf16 emulation as the
+    forward (bf16 conv operands, float32 sums) and the float32 plain
+    autograd as the backward."""
+    from rvc_tpu_torch.models import generators, layers
+    from rvc_tpu_torch.ops.kernels import resblock as KR
+
+    def group(x, weights, kernel_sizes, dilations, slope=0.1):
+        return KR.GroupFunction.apply(
+            functools.partial(KR.resblock_group_reference, bf16_operands=True),
+            tuple(kernel_sizes), tuple(map(tuple, dilations)), slope, x, *weights)
+
+    def chain(x, w1, b1, w2, b2, kernel_size, dilations=(1, 3, 5), slope=0.1):
+        return KR.ChainFunction.apply(
+            functools.partial(KR.resblock_chain_reference, bf16_operands=True),
+            kernel_size, tuple(dilations), slope, x, w1, b1, w2, b2)
+
+    saved = generators.resblock_group, layers.resblock_chain
+    generators.resblock_group, layers.resblock_chain = group, chain
+    try:
+        yield
+    finally:
+        generators.resblock_group, layers.resblock_chain = saved
+
+
+def train_vs_host(cfg, seed: int) -> dict:
+    """One full-width G+D step at batch TRAIN_PARITY_B on the card against
+    the port's CPU step: the same parameters, batch and handed draws. Each
+    loss within rel 2e-2 (K1/K2's bf16 forward) and gradient corr > 0.99
+    for enc_p, enc_q, flow, dec and D against the CPU step run with the
+    card's arithmetic (`bf16_host`); against the float32 CPU step the
+    losses within rel 2e-2 and corr > 0.99 for every module but the
+    decoder, whose corr is reported beside that of the CPU's own bf16 step
+    against its float32 one (the bf16 forward's share)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from rvc_tpu_torch.models.discriminators import build_discriminator
+    from rvc_tpu_torch.models.synthesizer import build_synthesizer
+    from rvc_tpu_torch.train.train_step import Batch
+
+    torch.manual_seed(seed)
+    nets = build_synthesizer(cfg, training=True), build_discriminator(cfg)
+    rng = np.random.default_rng(seed)
+    B, T, hop, seg = TRAIN_PARITY_B, 60, cfg.data.hop_length, cfg.segment_frames
+    t = np.arange(T * hop) / cfg.data.sample_rate
+    batch = Batch(torch.from_numpy(rng.standard_normal((B, T, 768)).astype(np.float32)),
+                  torch.tensor([T, T - 10]), torch.from_numpy(rng.integers(1, 255, (B, T))),
+                  torch.full((B, T), 180.0),
+                  torch.from_numpy(np.abs(rng.standard_normal(
+                      (B, T, cfg.data.spec_channels))).astype(np.float32)),
+                  torch.tensor([T, T - 10]),
+                  torch.from_numpy(np.stack([0.3 * np.sin(2 * np.pi * f * t) for f in
+                                             (150, 220)]).astype(np.float32)),
+                  torch.tensor([0, 1]))
+    draws = dict(eps=torch.from_numpy(rng.standard_normal(
+                     (B, T, cfg.model.inter_channels)).astype(np.float32)),
+                 ids_slice=torch.tensor([10, 3]),
+                 source_noise=torch.from_numpy(rng.standard_normal(
+                     (B, seg * hop, 1)).astype(np.float32)))
+    t0 = time.perf_counter()
+    host = step_grads(cfg, *copy.deepcopy(nets), batch, draws)
+    host_s = time.perf_counter() - t0
+    with bf16_host():
+        host_bf16 = step_grads(cfg, *copy.deepcopy(nets), batch, draws)
+    card = step_grads(cfg, *(n.to(TRAIN_DEVICE) for n in nets), batch.to(TRAIN_DEVICE),
+                      {k: v.to(TRAIN_DEVICE) for k, v in draws.items()})
+
+    def corr(a, b):
+        return {k: float(torch.corrcoef(torch.stack([a[1][k], b[1][k]]))[0, 1])
+                for k in ("enc_p", "enc_q", "flow", "dec", "D")}
+
+    def rel(a, b):
+        return {k: abs(a[0][k] - v) / max(abs(v), 1e-12) for k, v in b[0].items()}
+
+    out = {"losses_card": card[0], "losses_host_f32": host[0],
+           "losses_host_bf16": host_bf16[0], "loss_rel_vs_bf16": rel(card, host_bf16),
+           "loss_rel_vs_f32": rel(card, host), "grad_corr_vs_bf16": corr(card, host_bf16),
+           "grad_corr_vs_f32": corr(card, host), "host_bf16_vs_f32": corr(host_bf16, host),
+           "host_s": host_s}
+    ok = (all(r < 2e-2 for r in out["loss_rel_vs_bf16"].values())
+          and all(r < 2e-2 for r in out["loss_rel_vs_f32"].values())
+          and all(c > 0.99 for c in out["grad_corr_vs_bf16"].values())
+          and all(c > 0.99 for k, c in out["grad_corr_vs_f32"].items() if k != "dec"))
+    if not ok:
+        raise AssertionError(f"the card's train step against the host's: {out}")
+    return out
+
+
+def phase_train(work: str) -> dict:
+    """Make a voice model the way users do, at the 48 kHz model's full width:
+    the port's AudioPreprocessor, FeatureExtractor (K4 on the card) and
+    DatasetBuilder on a seeded dataset, RVCTrainer for TRAIN_EPOCHS epochs,
+    a save and a resume, the export converting a 2 s clip; then the step
+    timed and split, traced, its launches, the MRF / RefineGAN steps, the
+    descent check, the Functions' gradients and the card against the host.
+    Returns {path: launches}: `extract` over the whole extraction,
+    `train_step` per step."""
+    import numpy as np
+    import torch
+
+    from rvc_tpu_torch.api import RVC
+    from rvc_tpu_torch.configs import get_config
+    from rvc_tpu_torch.ops.kernels import LAUNCHES, record_calls, reset_launches
+    from rvc_tpu_torch.preprocess import AudioPreprocessor, DatasetBuilder, FeatureExtractor
+    from rvc_tpu_torch.train.data import DataLoader, RVCDataset
+    from rvc_tpu_torch.train.trainer import RVCTrainer
+
+    cfg = get_config(48000, train_batch_size=TRAIN_BATCH, **TRAIN_CFG)
+    exp = os.path.join(work, "logs", "voice")
+    times = {}
+    t0 = time.perf_counter()
+    data = make_dataset(work)
+    n_seg = AudioPreprocessor(exp, 48000).process_directory(data, "Automatic", chunk_len=3.0)
+    times["preprocess_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fe = FeatureExtractor(exp, cfg, device=TRAIN_DEVICE)
+    times["extractor_init_s"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    n_feat = fe.process_all(batch_size=TRAIN_BATCH)
+    builder = DatasetBuilder(exp)
+    train_rows, val_rows = builder.build()
+    train_rows += builder.add_mutes(cfg, 2, feature_extractor=fe)
+    torch.cuda.synchronize()
+    times["extract_s"] = time.perf_counter() - t0
+    extract_launches = dict(LAUNCHES)
+    if n_feat != n_seg or extract_launches["log_mel"] < 1:
+        raise AssertionError(f"extract: {n_feat} of {n_seg} segments, launches "
+                             f"{extract_launches}")
+    del fe
+    loader = DataLoader(RVCDataset(train_rows, cfg.data.hop_length), TRAIN_BATCH)
+    ckpt = os.path.join(exp, "ckpt")
+    t0 = time.perf_counter()
+    trainer = RVCTrainer(cfg, loader, checkpoint_dir=ckpt, seed=SEED, device=TRAIN_DEVICE,
+                         model_name="voice")
+    times["trainer_init_s"] = time.perf_counter() - t0
+    batch = next(iter(loader)).to(TRAIN_DEVICE)
+    trainer.eval_batch = type(batch)(*(x[:1] for x in batch))
+    t0 = time.perf_counter()
+    result = trainer.train(TRAIN_EPOCHS, save_every=TRAIN_EPOCHS)
+    times["train_s"] = time.perf_counter() - t0
+    history = result["history"]
+    check_finite([{k: v for k, v in h.items() if k.startswith(("loss", "grad"))}
+                  for h in history], "the trainer's epochs")
+
+    resumed = RVCTrainer(cfg, loader, checkpoint_dir=ckpt, seed=SEED + 1, device=TRAIN_DEVICE,
+                         model_name="voice")
+    resumed.resume("last")
+    same = all(torch.equal(a, b) for net in ("net_g", "net_d") for a, b in zip(
+        getattr(trainer, net).state_dict().values(), getattr(resumed, net).state_dict().values()))
+    same_opt = all(torch.equal(a, b) for a, b in zip(trainer.g_opt.mu + trainer.d_opt.nu,
+                                                      resumed.g_opt.mu + resumed.d_opt.nu))
+    if not (same and same_opt and resumed.epoch == trainer.epoch
+            and resumed.step == trainer.step):
+        raise AssertionError(f"resume: params {same}, moments {same_opt}, epoch "
+                             f"{resumed.epoch}/{trainer.epoch}, step {resumed.step}/{trainer.step}")
+    del resumed
+    pth = trainer.export_inference_model(os.path.join(exp, "voice.pth"))
+    rvc = RVC(model_path=pth, device=TRAIN_DEVICE, seed=SEED)
+    clip = test_clip(PARITY_S, SEED + 2)
+    out = rvc.infer(clip)
+    if len(out) != int(PARITY_S * 48000) or not np.isfinite(out).all():
+        raise AssertionError(f"the exported model converted {len(out)} samples "
+                             f"(want {int(PARITY_S * 48000)}), finite={np.isfinite(out).all()}")
+    del rvc
+    emit({"phase": "train", "config": f"get_config(48000, train_batch_size={TRAIN_BATCH}, "
+                                      f"**{TRAIN_CFG}), random init from seed {SEED}",
+          "dataset": {"speakers": TRAIN_SPEAKERS, "utterances": TRAIN_SPEAKERS * TRAIN_UTTS,
+                      "seconds_each": TRAIN_UTT_S, "segments": n_seg,
+                      "rows_train": len(train_rows), "rows_val": len(val_rows),
+                      "batches_per_epoch": history[0]["batches"]},
+          "times": times, "extract_launches": extract_launches,
+          "epochs": [{k: h[k] for k in ("epoch", "batches", "loss_g_total", "loss_mel",
+                                         "loss_d", "seconds")} for h in history],
+          "resume": "params, moments, epoch and step equal",
+          "export": {"path": os.path.basename(pth), "converted_samples": len(out),
+                     "peak": float(np.abs(out).max())}})
+
+    # the step on one batch: timed, split, traced, launches, memory
+    step = trainer.step_fn(True)
+    gen = trainer.generator
+    ms, metrics, launches, peak_gb = timed_steps(step, batch, gen, TRAIN_WARM, TRAIN_TIMED)
+    check_finite(metrics, "the timed steps")
+    if launches != TRAIN_LAUNCHES:
+        raise AssertionError(f"a train step launched {launches}: want {TRAIN_LAUNCHES}")
+    split = {k: float(np.median([s[k] for s in [train_split(step, batch, gen)
+                                                 for _ in range(3)]]))
+             for k in ("G forward", "G backward", "G optimizer", "D forward + backward",
+                       "D optimizer")}
+    trainer.net_g.checkpointing = True
+    reset_launches()
+    step(batch, gen)
+    torch.cuda.synchronize()
+    ckpt_launches = dict(LAUNCHES)
+    trainer.net_g.checkpointing = False
+    want = {k: (2 * n if k in ("resblock_group", "resblock_chain") else n)
+            for k, n in TRAIN_LAUNCHES.items()}
+    if ckpt_launches != want:
+        raise AssertionError(f"a checkpointing step launched {ckpt_launches}: want {want}")
+    prof = trace_one(lambda: step(batch, gen), top=10)
+    if "kernel_busy_ms" in prof:
+        prof["idle_share_of_span"] = 1 - prof["kernel_busy_ms"] / prof["device_span_ms"]
+    seg_s = TRAIN_BATCH * cfg.train.segment_size / cfg.data.sample_rate
+    med = float(np.median(ms))
+    emit({"phase": "train_step", "batch": TRAIN_BATCH, "frames": batch.spec.shape[1],
+          "segment_samples": cfg.train.segment_size, "warm": TRAIN_WARM, "steps": TRAIN_TIMED,
+          "step_ms": percentiles(ms), "steps_per_s": 1e3 / med,
+          "segment_audio_s_per_s": seg_s * 1e3 / med, "split_ms": split,
+          "launches": launches, "launches_checkpointing": ckpt_launches,
+          "max_memory_gb": peak_gb, "trace": prof,
+          "busy_share_of_median_step": prof.get("kernel_busy_ms", math.nan) / med,
+          "last_metrics": metrics[-1]})
+
+    # warmup mode on one fixed batch (the segment starts fixed too): the mel loss falls
+    descent = trainer.step_fn(False)
+    ids = torch.zeros(TRAIN_BATCH, dtype=torch.long, device=TRAIN_DEVICE)
+    mel = [float(descent(batch, gen, ids_slice=ids)["loss_mel"])
+           for _ in range(TRAIN_DESCENT_STEPS)]
+    first, last = float(np.mean(mel[:5])), float(np.mean(mel[-5:]))
+    if not (all(map(math.isfinite, mel)) and last < first):
+        raise AssertionError(f"warmup-mode mel loss did not fall: {mel}")
+
+    with record_calls() as calls:
+        step(batch, gen)
+    held = held_calls(calls)
+    grads = function_gradients(calls)
+    del calls
+    parity = train_vs_host(get_config(48000, train_batch_size=TRAIN_PARITY_B, **TRAIN_CFG), SEED)
+    emit({"phase": "train_checks", "descent": {"steps": TRAIN_DESCENT_STEPS,
+                                               "mean_first_5": first, "mean_last_5": last,
+                                               "loss_mel": mel},
+          "forwards_held": held, "function_gradients": grads,
+          "function_gradient_bar": f"rel_l2 < {TRAIN_GRAD_BAR}", "card_vs_host": parity})
+    del trainer, step, descent
+
+    for name, vocoder in VOCODERS.items():
+        vcfg = get_config(48000, train_batch_size=TRAIN_BATCH, model_vocoder=vocoder,
+                          **TRAIN_CFG)
+        vt = RVCTrainer(vcfg, loader, checkpoint_dir=os.path.join(exp, name), seed=SEED,
+                        device=TRAIN_DEVICE, model_name=name)
+        vstep = vt.step_fn(True)
+        vms, vmetrics, vlaunches, vpeak = timed_steps(vstep, batch, vt.generator, 1,
+                                                      TRAIN_VOCODER_STEPS)
+        check_finite(vmetrics, f"the {vocoder} steps")
+        if vlaunches != {**TRAIN_LAUNCHES, "resblock_group": 0, "resblock_chain": 0}:
+            raise AssertionError(f"a {vocoder} step launched {vlaunches}")
+        emit({"phase": "train_vocoder", "vocoder": vocoder,
+              "discriminator": "v3 (5 periods + 3 resolutions)" if vocoder == "RefineGAN"
+              else "v2 (S + 8 periods)", "steps": TRAIN_VOCODER_STEPS, "step_ms": vms,
+              "split_ms": train_split(vstep, batch, vt.generator), "launches": vlaunches,
+              "max_memory_gb": vpeak, "trace": trace_one(lambda: vstep(batch, vt.generator)),
+              "last_metrics": vmetrics[-1]})
+        del vt, vstep
+    return {"extract": extract_launches, "train_step": launches}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1922,6 +2382,9 @@ def main() -> int:
         realtime_launches = phase_realtime(rvc, cpu_rvc, index_path)
     del cpu_rvc
     longform_launches = phase_longform(rvc)
+    del rvc
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as work:
+        train_launches = phase_train(work)
     for entry, name in zip(summary, KERNELS):
         entry["launches_by_path"] = {"pipeline": launches[name],
                                      "retrieval": retrieval_launches[name],
@@ -1930,7 +2393,8 @@ def main() -> int:
                                      "postfx": postfx_launches[name],
                                      **{k: v[name] for k, v in vocoder_launches.items()},
                                      "longform": longform_launches[name],
-                                     **{k: v[name] for k, v in realtime_launches.items()}}
+                                     **{k: v[name] for k, v in realtime_launches.items()},
+                                     **{k: v[name] for k, v in train_launches.items()}}
 
     emit({"kernels": summary})
     print(card, flush=True)

@@ -1,6 +1,6 @@
 """Command line of the port (counterpart of `rvc_tpu/cli.py`): the `infer`,
-`batch_infer` and `serve` subcommands, with the reference's flag names and
-defaults, plus `--device`.
+`batch_infer`, `serve`, `preprocess`, `extract`, `train` and `index`
+subcommands, with the reference's flag names and defaults, plus `--device`.
 
     python -m rvc_tpu_torch.cli infer --input_path in.wav --output_path out.wav \\
         --model_path model.pth --index_path model.index
@@ -19,12 +19,24 @@ streams 48 kHz audio through the model block by block (`realtime/`): the
 length-prefixed float32 TCP protocol with one engine per connection, or
 (`--protocol ws`, the default, with the `websockets` package) the
 reference's ws-audio client protocol, with `--webui` the browser client.
+
+    python -m rvc_tpu_torch.cli preprocess --model_name m --dataset_path data/
+    python -m rvc_tpu_torch.cli extract --model_name m
+    python -m rvc_tpu_torch.cli train --model_name m --total_epoch 300
+
+make a voice model from a folder of recordings (speaker ids from numbered
+subfolders) under `logs/m/`: sliced audio, then HuBERT features, RMVPE f0
+and spectrograms on the card, then GAN training; `train` ends with
+`logs/m/m.safetensors` (+ `.json`) for `infer`, and `--index_algorithm`
+also builds `logs/m/m.index` (as `index` does).
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
+import sys
 
 # the post-processing effects (`realtime.fx.build_fx_chain`): on / off, then
 # the values with their defaults
@@ -199,6 +211,259 @@ def _add_serve_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--device", default=None, help=_DEVICE_HELP)
 
 
+def cmd_preprocess(args: argparse.Namespace) -> None:
+    from rvc_tpu_torch.preprocess import AudioPreprocessor
+
+    exp_dir = os.path.join(args.logs_dir, args.model_name)
+    os.makedirs(exp_dir, exist_ok=True)
+    n = AudioPreprocessor(exp_dir, args.sample_rate).process_directory(
+        args.dataset_path, args.cut_preprocess, cpu_cores=args.cpu_cores,
+        process_effects=args.process_effects, chunk_len=args.chunk_len,
+        overlap_len=args.overlap_len, noise_reduction=args.noise_reduction,
+        noise_reduction_strength=args.noise_reduction_strength)
+    print(f"{n} segments written to {exp_dir}")
+
+
+def cmd_extract(args: argparse.Namespace) -> None:
+    """Features of every sliced segment, the filelists (with the mute rows)
+    and model_info.json (`rvc_tpu/cli.py:cmd_extract`)."""
+    from rvc_tpu_torch.configs import get_config
+    from rvc_tpu_torch.preprocess import DatasetBuilder, FeatureExtractor
+    from rvc_tpu_torch.utils.embedders import resolve_embedder
+
+    exp_dir = os.path.join(args.logs_dir, args.model_name)
+    cfg = get_config(args.sample_rate)
+    hubert_path = args.hubert_path or resolve_embedder(args.embedder_model,
+                                                       args.embedder_model_custom)
+    fe = FeatureExtractor(exp_dir, cfg, f0_method=args.f0_method,
+                          f0_hop_length=args.hop_length, hubert_path=hubert_path,
+                          device=args.device)
+    n = fe.process_all(batch_size=args.batch_size, cpu_cores=args.cpu_cores)
+    builder = DatasetBuilder(exp_dir)
+    train_rows, val_rows = builder.build()
+    if args.include_mutes > 0:
+        train_rows = train_rows + builder.add_mutes(cfg, args.include_mutes,
+                                                    feature_extractor=fe)
+    builder.write_filelist(os.path.join(exp_dir, "filelist_train.txt"), train_rows)
+    builder.write_filelist(os.path.join(exp_dir, "filelist_val.txt"), val_rows)
+    sids = sorted({r["sid"] for r in train_rows + val_rows})
+    with open(os.path.join(exp_dir, "model_info.json"), "w") as f:
+        json.dump({"speakers_id": len(sids) or 1, "sample_rate": args.sample_rate,
+                   "f0_method": args.f0_method,
+                   "embedder_model": args.embedder_model if not args.hubert_path else "custom",
+                   "embedder_model_custom": args.hubert_path or args.embedder_model_custom,
+                   "n_train": len(train_rows), "n_val": len(val_rows)}, f, indent=2)
+    print(f"{n} segments extracted; {len(train_rows)} train / {len(val_rows)} val")
+
+
+def _default_pretrains(args: argparse.Namespace):
+    """The stock pretrains for --pretrained under models/pretraineds; with
+    either missing, a warning and (None, None): training from scratch."""
+    from rvc_tpu_torch.utils.embedders import models_dir
+
+    family = ("refinegan" if args.vocoder == "RefineGAN"
+              else "titan" if args.pretrain == "titan" else "hifi-gan")
+    srk = f"{args.sample_rate // 1000}k"
+    root = os.path.join(models_dir(), "pretraineds", family)
+    g, d = os.path.join(root, f"f0G{srk}.pth"), os.path.join(root, f"f0D{srk}.pth")
+    missing = [p for p in (g, d) if not os.path.exists(p)]
+    if missing:
+        print(f"warning: --pretrained requested but {missing} not found; training from "
+              f"scratch", file=sys.stderr)
+        return None, None
+    return g, d
+
+
+def cmd_train(args: argparse.Namespace) -> None:
+    """Train on the experiment's filelist and export the inference model
+    (`rvc_tpu/cli.py:cmd_train`, on one card)."""
+    import numpy as np
+
+    from rvc_tpu_torch.configs import get_config
+    from rvc_tpu_torch.preprocess import DatasetBuilder
+    from rvc_tpu_torch.train.data import DataLoader, RVCDataset
+    from rvc_tpu_torch.train.trainer import RVCTrainer
+    from rvc_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(args.device)
+    exp_dir = os.path.join(args.logs_dir, args.model_name)
+    overrides = json.loads(args.config_overrides) if args.config_overrides else {}
+    cfg = get_config(args.sample_rate, train_batch_size=args.batch_size,
+                     train_warmup_epochs=args.warmup_epochs,
+                     train_d_step_per_g_step=args.d_step_per_g_step,
+                     model_vocoder=args.vocoder, model_checkpointing=args.checkpointing,
+                     **overrides)
+    rows = DatasetBuilder.read_filelist(os.path.join(exp_dir, "filelist_train.txt"))
+    for r in rows:  # n_frames for the buckets
+        if "spec" in r and os.path.exists(r["spec"]):
+            r["n_frames"] = int(np.load(r["spec"], mmap_mode="r").shape[0])
+    batch_size = args.batch_size
+    if args.auto_batch_size:
+        from rvc_tpu_torch.train.overtraining import calculate_recommended_batch_size
+
+        minutes = (sum(r.get("n_frames", 0) for r in rows)
+                   * cfg.data.hop_length / cfg.data.sample_rate / 60.0)
+        batch_size = calculate_recommended_batch_size(minutes)
+        print(f"auto batch size: {batch_size} ({minutes:.1f} min of audio)")
+    ckpt_dir = os.path.join(exp_dir, "ckpt")
+    if args.cleanup and os.path.isdir(ckpt_dir):
+        import shutil
+
+        shutil.rmtree(ckpt_dir)
+    loader = DataLoader(RVCDataset(rows, cfg.data.hop_length), batch_size,
+                        shuffle=not args.no_shuffle)
+    trainer = RVCTrainer(cfg, loader, checkpoint_dir=ckpt_dir,
+                         use_overtraining_detector=args.overtraining_detector,
+                         overtraining_threshold=args.overtraining_threshold,
+                         overtraining_patience=args.overtraining_patience,
+                         save_only_latest=args.save_only_latest,
+                         save_every_weights=args.save_every_weights,
+                         cache_data_on_device=args.cache_data_in_gpu,
+                         model_name=args.model_name, use_aim=args.use_aim, device=device)
+    g_path, d_path = args.g_pretrained_path, args.d_pretrained_path
+    if args.custom_pretrained and not (g_path or d_path):
+        raise SystemExit("--custom_pretrained requires --g_pretrained_path/--d_pretrained_path")
+    if args.pretrained and not (g_path or d_path):
+        g_path, d_path = _default_pretrains(args)
+    if g_path or d_path:
+        trainer.load_pretrained(g_path, d_path)
+    result = trainer.train(args.total_epoch, save_every=args.save_every_epoch)
+    final = trainer.export_inference_model(
+        os.path.join(exp_dir, f"{args.model_name}.safetensors"))
+    if args.index_algorithm:
+        try:
+            cmd_index(args)
+        except SystemExit as e:  # no features: the trained model stands
+            print(f"warning: post-training index build failed ({e}); run `index` by hand",
+                  file=sys.stderr)
+    print(json.dumps({"epochs_run": result["epochs_run"], "best_loss": result["best_loss"],
+                      "model": final}))
+
+
+def cmd_index(args: argparse.Namespace) -> None:
+    """The retrieval index of the experiment's features, as a FAISS file
+    (`rvc_tpu/cli.py:cmd_index`): above 200,000 vectors (or with KMeans)
+    first compressed to at most 10,000 k-means centroids."""
+    import numpy as np
+
+    from rvc_tpu_torch.retrieval import build_index, write_faiss_index
+    from rvc_tpu_torch.retrieval.ivf import kmeans_fit
+
+    exp_dir = os.path.join(args.logs_dir, args.model_name)
+    feat_dir = os.path.join(exp_dir, "features")
+    feats = [np.load(os.path.join(feat_dir, f))
+             for f in sorted(os.listdir(feat_dir)) if f.endswith(".npy")]
+    if not feats:
+        raise SystemExit("no features found; run extract first")
+    all_feats = np.concatenate(feats, axis=0)
+    rng = np.random.default_rng(0)
+    rng.shuffle(all_feats)
+    algo = args.index_algorithm or "Auto"
+    if (algo == "KMeans" or (algo == "Auto" and len(all_feats) > 200_000)) \
+            and len(all_feats) > 256:
+        k = min(10_000, len(all_feats) // 4)
+        init = all_feats[rng.choice(len(all_feats), k, replace=False)]
+        all_feats = kmeans_fit(all_feats, init, k, device=args.device)
+    idx = build_index(all_feats, device=args.device)
+    out = os.path.join(exp_dir, f"{args.model_name}.index")
+    write_faiss_index(idx, out)
+    print(f"wrote {out} ({idx.ntotal} vectors, {idx.nlist} lists)")
+
+
+def _add_train_args(sub) -> None:
+    """preprocess, extract, train and index: `rvc_tpu/cli.py:570-675`'s flags
+    and defaults, --device added; the distributed flags are not taken."""
+    p = sub.add_parser("preprocess")
+    p.add_argument("--model_name", required=True)
+    p.add_argument("--dataset_path", required=True)
+    p.add_argument("--sample_rate", type=int, default=48000, choices=[32000, 40000, 48000])
+    p.add_argument("--cut_preprocess", default="Automatic",
+                   choices=["Skip", "Simple", "Automatic"])
+    p.add_argument("--process_effects", action="store_true", default=True)
+    p.add_argument("--chunk_len", type=float, default=3.0)
+    p.add_argument("--overlap_len", type=float, default=0.3)
+    p.add_argument("--cpu_cores", type=int, default=os.cpu_count() or 1,
+                   help="file-level preprocessing workers")
+    p.add_argument("--noise_reduction", action="store_true")
+    p.add_argument("--noise_reduction_strength", type=float, default=0.7)
+    p.add_argument("--logs_dir", default="logs")
+    p.set_defaults(fn=cmd_preprocess)
+
+    p = sub.add_parser("extract")
+    p.add_argument("--model_name", required=True)
+    p.add_argument("--sample_rate", type=int, default=48000)
+    p.add_argument("--f0_method", default="rmvpe", type=_f0_method)
+    p.add_argument("--hop_length", type=int, default=160,
+                   help="crepe analysis hop in 16 kHz samples")
+    p.add_argument("--batch_size", type=int, default=8,
+                   help="same-length segments batched per device call")
+    p.add_argument("--cpu_cores", type=int, default=None,
+                   help="parallel host-side audio decode workers")
+    p.add_argument("--include_mutes", type=int, default=2,
+                   help="mute samples appended per speaker (0 disables)")
+    p.add_argument("--hubert_path", default=None)
+    p.add_argument("--embedder_model", default="contentvec", choices=_EMBEDDERS)
+    p.add_argument("--embedder_model_custom", default=None)
+    p.add_argument("--gpu", default=None,
+                   help="accepted for the reference CLI's sake and ignored (--device)")
+    p.add_argument("--logs_dir", default="logs")
+    p.add_argument("--device", default=None, help=_DEVICE_HELP)
+    p.set_defaults(fn=cmd_extract)
+
+    p = sub.add_parser("train")
+    p.add_argument("--model_name", required=True)
+    p.add_argument("--sample_rate", type=int, default=48000)
+    p.add_argument("--total_epoch", type=int, default=300)
+    p.add_argument("--batch_size", type=int, default=8)
+    p.add_argument("--save_every_epoch", type=int, default=10)
+    p.add_argument("--warmup_epochs", type=int, default=0)
+    p.add_argument("--g_pretrained_path", default=None)
+    p.add_argument("--d_pretrained_path", default=None)
+    p.add_argument("--pretrained", action="store_true",
+                   help="load the stock pretrains matching --vocoder/--sample_rate from "
+                        "models/pretraineds")
+    p.add_argument("--custom_pretrained", action="store_true",
+                   help="use --g_pretrained_path/--d_pretrained_path")
+    p.add_argument("--pretrain", default="base", choices=["base", "titan"],
+                   help="pretrain family for --pretrained")
+    p.add_argument("--cleanup", action="store_true",
+                   help="delete stale checkpoints in the experiment dir before training")
+    p.add_argument("--index_algorithm", default=None, choices=["Auto", "Faiss", "KMeans"],
+                   help="also build the retrieval index after training")
+    p.add_argument("--auto_batch_size", action="store_true",
+                   help="pick the batch size from dataset length")
+    p.add_argument("--gpu", default=None,
+                   help="accepted for the reference CLI's sake and ignored (--device)")
+    p.add_argument("--overtraining_detector", action="store_true")
+    p.add_argument("--overtraining_threshold", type=int, default=50)
+    p.add_argument("--overtraining_patience", type=int, default=10)
+    p.add_argument("--logs_dir", default="logs")
+    p.add_argument("--save_only_latest", action="store_true")
+    p.add_argument("--save_every_weights", action="store_true")
+    p.add_argument("--cache_data_in_gpu", action="store_true",
+                   help="keep collated batches device-resident across epochs")
+    p.add_argument("--d_step_per_g_step", type=int, default=1)
+    p.add_argument("--vocoder", default="HiFi-GAN",
+                   choices=["HiFi-GAN", "MRF HiFi-GAN", "RefineGAN"])
+    p.add_argument("--checkpointing", action="store_true",
+                   help="recompute the decoder in the backward pass (activation checkpointing)")
+    p.add_argument("--use_aim", action="store_true",
+                   help="track with Aim (raises if aim is not installed)")
+    p.add_argument("--config_overrides", default=None,
+                   help='JSON dict of get_config kwargs, e.g. \'{"model_n_layers": 2}\'')
+    p.add_argument("--no_shuffle", action="store_true",
+                   help="deterministic batch order (debug/repro runs)")
+    p.add_argument("--device", default=None, help=_DEVICE_HELP)
+    p.set_defaults(fn=cmd_train)
+
+    p = sub.add_parser("index")
+    p.add_argument("--model_name", required=True)
+    p.add_argument("--logs_dir", default="logs")
+    p.add_argument("--index_algorithm", default="Auto", choices=["Auto", "Faiss", "KMeans"])
+    p.add_argument("--device", default=None, help=_DEVICE_HELP)
+    p.set_defaults(fn=cmd_index)
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser("rvc-tpu-torch", description=__doc__,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -221,6 +486,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = sub.add_parser("serve", help="realtime conversion server (ws-audio or TCP protocol)")
     _add_serve_args(p)
     p.set_defaults(fn=cmd_serve)
+    _add_train_args(sub)
     return parser
 
 

@@ -1,9 +1,11 @@
-"""TextEncoder, enc_p (counterpart of `rvc_tpu/models/encoders.py`).
+"""TextEncoder, enc_p, and PosteriorEncoder, enc_q (counterpart of
+`rvc_tpu/models/encoders.py`).
 
 phone (768) -> Linear (+ pitch Embedding(256, H)) -> * sqrt(H) ->
 LeakyReLU(0.1) -> n_layers x [rel-pos MHA + LN + FFN + LN] -> 1x1 conv ->
 (m_p, logs_p). The attention goes through kernel K3. The posterior encoder
-is training-only and not ported yet.
+(training only) takes the linear spectrogram through a 1x1 conv, a WaveNet
+and a 1x1 conv to (m_q, logs_q) and draws z = m_q + eps exp(logs_q).
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from rvc_tpu_torch.models.layers import Conv1d, LayerNorm, leaky_relu
+from rvc_tpu_torch.models.layers import Conv1d, LayerNorm, WaveNet, leaky_relu
 from rvc_tpu_torch.ops.commons import sequence_mask
 from rvc_tpu_torch.ops.kernels.attention import rel_attention
 
@@ -116,3 +118,32 @@ class TextEncoder(nn.Module):
         stats = self.proj(x) * x_mask
         m, logs = torch.chunk(stats, 2, dim=-1)
         return m, logs, x_mask
+
+
+class PosteriorEncoder(nn.Module):
+    """enc_q: spectrogram (B, T, in_channels) -> (z, m_q, logs_q, y_mask)."""
+
+    def __init__(self, in_channels: int, out_channels: int, hidden_channels: int,
+                 kernel_size: int = 5, dilation_rate: int = 1, n_layers: int = 16,
+                 gin_channels: int = 0):
+        super().__init__()
+        self.pre = Conv1d(in_channels, hidden_channels, 1)
+        self.enc = WaveNet(hidden_channels, kernel_size, dilation_rate, n_layers, gin_channels)
+        self.proj = Conv1d(hidden_channels, out_channels * 2, 1)
+
+    def forward(self, x: torch.Tensor, x_lengths: torch.Tensor,
+                g: Optional[torch.Tensor] = None, *,
+                generator: Optional[torch.Generator] = None,
+                eps: Optional[torch.Tensor] = None):
+        """eps: the standard normal draw (B, T, out_channels); else drawn
+        from `generator` (on x's device)."""
+        x_mask = sequence_mask(x_lengths, x.shape[1])[:, :, None].to(x.dtype)
+        h = self.enc(self.pre(x) * x_mask, x_mask, g=g)
+        stats = self.proj(h) * x_mask
+        m, logs = torch.chunk(stats, 2, dim=-1)
+        if eps is None:
+            if generator is None:
+                raise ValueError("PosteriorEncoder needs eps or a generator to draw it")
+            eps = torch.randn(m.shape, generator=generator, device=m.device)
+        z = (m + eps * torch.exp(logs)) * x_mask
+        return z, m, logs, x_mask

@@ -1,9 +1,10 @@
-"""Normalizing flow, reverse direction only (counterpart of
-`rvc_tpu/models/flow.py`).
+"""Normalizing flow (counterpart of `rvc_tpu/models/flow.py`).
 
 As upstream, `flows` interleaves coupling layers (indices 0, 2, 4, 6) with
-parameter-free channel flips, so the state dict keys match. Reverse runs
-the list backwards, which puts each flip BEFORE its coupling layer.
+parameter-free channel flips, so the state dict keys match. Reverse (the
+default: inference) runs the list backwards, which puts each flip BEFORE
+its coupling layer; forward (training: the posterior into prior space)
+runs it in order.
 """
 
 from __future__ import annotations
@@ -29,17 +30,19 @@ class ResidualCouplingLayer(nn.Module):
         self.post = Conv1d(hidden_channels, self.half, 1)
 
     def forward(self, x: torch.Tensor, x_mask: torch.Tensor,
-                g: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Inverse of the coupling: x1 <- (x1 - m(x0)) * mask."""
+                g: Optional[torch.Tensor] = None, reverse: bool = True) -> torch.Tensor:
+        """The coupling x1 <- (m(x0) + x1) * mask, or in reverse its inverse
+        x1 <- (x1 - m(x0)) * mask."""
         x0, x1 = x[..., :self.half], x[..., self.half:]
         h = self.enc(self.pre(x0) * x_mask, x_mask, g=g)
         m = self.post(h) * x_mask
-        return torch.cat([x0, (x1 - m) * x_mask], dim=-1)
+        x1 = (x1 - m) * x_mask if reverse else (m + x1) * x_mask
+        return torch.cat([x0, x1], dim=-1)
 
 
 class Flip(nn.Module):
     def forward(self, x: torch.Tensor, x_mask: torch.Tensor,
-                g: Optional[torch.Tensor] = None) -> torch.Tensor:
+                g: Optional[torch.Tensor] = None, reverse: bool = True) -> torch.Tensor:
         return torch.flip(x, dims=(-1,))
 
 
@@ -56,8 +59,8 @@ class ResidualCouplingBlock(nn.Module):
             self.flows.append(Flip())
 
     def forward(self, x: torch.Tensor, x_mask: torch.Tensor,
-                g: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Reverse flow: latent z_p (B, T, C) -> z."""
-        for flow in reversed(self.flows):
-            x = flow(x, x_mask, g=g)
+                g: Optional[torch.Tensor] = None, reverse: bool = True) -> torch.Tensor:
+        """Reverse: latent z_p (B, T, C) -> z; forward: z -> z_p."""
+        for flow in (reversed(self.flows) if reverse else self.flows):
+            x = flow(x, x_mask, g=g, reverse=reverse)
         return x

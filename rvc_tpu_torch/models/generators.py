@@ -91,10 +91,11 @@ class SourceModuleHnNSF(nn.Module):
         self.l_linear = nn.Linear(harmonic_num + 1, 1)
 
     def forward(self, f0: torch.Tensor, upp: int,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         src, _ = sine_source(f0, upp, self.sample_rate, self.harmonic_num,
                              self.sine_amp, self.noise_std, self.voiced_threshold,
-                             generator)
+                             generator, noise)
         return torch.tanh(self.l_linear(src))
 
 
@@ -134,8 +135,11 @@ class HiFiGANNSFGenerator(nn.Module):
 
     def forward(self, x: torch.Tensor, f0: torch.Tensor,
                 g: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        har_source = self.m_source(f0, self.upp, generator)  # (B, T*upp, 1)
+                generator: Optional[torch.Generator] = None,
+                noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """noise: the source's standard normal draw (B, T*upp, 1), in place
+        of one from `generator`."""
+        har_source = self.m_source(f0, self.upp, generator, noise)  # (B, T*upp, 1)
         x = self.conv_pre(x)
         if g is not None:
             x = x + self.cond(g)

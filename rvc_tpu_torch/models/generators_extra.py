@@ -161,7 +161,8 @@ class HiFiGANMRFGenerator(nn.Module):
 @lru_cache(maxsize=16)
 def _sinc_kernel(factor: int, width: int, rolloff: float, beta: float, device: str):
     """The decimation's lowpass taps (2 width factor + 1,), float32, summing
-    to 1, made in float64 numpy as in the reference."""
+    to 1, made in float64 numpy as in the reference. Made outside inference
+    mode, so that training may use the cached tensor after a conversion."""
     cutoff = rolloff * 0.5 / factor
     half = width * factor
     t = np.arange(-half, half + 1, dtype=np.float64)
@@ -169,7 +170,8 @@ def _sinc_kernel(factor: int, width: int, rolloff: float, beta: float, device: s
     win = np.kaiser(2 * half + 1, beta)
     kernel = (sinc * win).astype(np.float32)
     kernel = kernel / kernel.sum()
-    return torch.from_numpy(kernel).to(device)
+    with torch.inference_mode(False):
+        return torch.from_numpy(kernel).to(device)
 
 
 def kaiser_sinc_decimate(x: torch.Tensor, factor: int, width: int = 64,

@@ -16,3 +16,26 @@ def fused_add_tanh_sigmoid_multiply(a: torch.Tensor, b: torch.Tensor,
     """WaveNet gate on (B, T, 2*n_channels): tanh(first half) * sigmoid(second)."""
     x = a + b
     return torch.tanh(x[..., :n_channels]) * torch.sigmoid(x[..., n_channels:])
+
+
+def slice_segments(x: torch.Tensor, ids_str: torch.Tensor, segment_size: int) -> torch.Tensor:
+    """Per-row time slice: x (B, T, C) or (B, T), ids_str (B,) int starts ->
+    (B, segment_size, C) / (B, segment_size). A start past T - segment_size
+    is clamped there, as `lax.dynamic_slice` does."""
+    T = x.shape[1]
+    start = ids_str.long().clamp(0, max(T - segment_size, 0))
+    idx = start[:, None] + torch.arange(segment_size, device=x.device)
+    rows = torch.arange(x.shape[0], device=x.device)[:, None]
+    return x[rows, idx]
+
+
+def rand_slice_segments(x: torch.Tensor, x_lengths: torch.Tensor, segment_size: int,
+                        generator: torch.Generator):
+    """Random per-row slice for segment training: starts uniform in
+    [0, len - segment_size] (0 for rows shorter than a segment), drawn from
+    `generator` (on x's device). Returns (segments, ids_str)."""
+    max_starts = torch.clamp(x_lengths.long() - segment_size, min=0)
+    u = torch.rand(x.shape[0], generator=generator, device=x.device)
+    ids = (u * (max_starts + 1).float()).long()
+    ids = torch.minimum(ids, max_starts)
+    return slice_segments(x, ids, segment_size), ids

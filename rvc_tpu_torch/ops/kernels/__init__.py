@@ -12,14 +12,25 @@ the same signature, which it runs for CPU tensors.
 `LAUNCHES` counts each wrapper's kernel launches (and nothing else), so a
 run can show that the main path went through the kernels. `record_calls`
 keeps a copy of every wrapper call made inside it, so the calls a run
-made can be replayed and timed one by one.
+made can be replayed and timed one by one (detached copies: a recording
+holds no autograd graph).
+
+In training K1-K3 run under `torch.autograd.Function`s (`ChainFunction`,
+`GroupFunction`, `RelAttentionFunction`): the forward is the kernel, the
+backward float32 autograd of the plain version re-run from the saved
+inputs (`plain_vjp`), as the reference's `custom_vjp`s take XLA's autodiff
+of the plain chain (`rvc_tpu/ops/pallas/resblock.py:_chain_bwd`,
+`_group_bwd`; `attention.py:_bwd`). The JAX package has no backward
+kernel, so neither has the port.
 """
 
 from __future__ import annotations
 
 import functools
 from contextlib import contextmanager
-from typing import Iterator, List, Optional
+from typing import Callable, Iterator, List, Optional, Sequence
+
+import torch
 
 LAUNCHES = {"resblock_group": 0, "resblock_chain": 0, "rel_attention": 0,
             "log_mel": 0}
@@ -62,3 +73,15 @@ def record_calls() -> Iterator[List[tuple]]:
         yield calls
     finally:
         _recording = None
+
+
+def plain_vjp(plain: Callable, inputs: Sequence[torch.Tensor], needs: Sequence[bool],
+              grad: torch.Tensor) -> tuple:
+    """The gradients of plain(*inputs) against `grad` for the inputs that
+    `needs` marks (None for the others): the plain version re-run in
+    float32 under autograd, from the saved inputs."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(bool(n)) for t, n in zip(inputs, needs)]
+        want = [t for t, n in zip(leaves, needs) if n]
+        grads = iter(torch.autograd.grad(plain(*leaves), want, grad) if want else ())
+    return tuple(next(grads) if n else None for n in needs)

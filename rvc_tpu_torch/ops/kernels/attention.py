@@ -17,6 +17,12 @@ band logits, scores, online softmax, P V, over a share of the keys) and
 the merge (log-sum-exp over the key splits, the band weights times
 `emb_rel_v`). The output is (B, H, T, D) over (B, T, H, D) memory, which
 the caller's `transpose(1, 2).reshape(B, T, C)` takes without a copy.
+
+On the card the call runs under autograd (`RelAttentionFunction`): the
+forward is the kernel, the backward the float32 plain version's autograd,
+re-run from the saved inputs (the reference's `_bwd`): gradients of q, k,
+v, emb_rel_k and emb_rel_v, none of key_lens. The garbage rows take no
+gradient, since every caller multiplies them away.
 """
 
 from __future__ import annotations
@@ -28,7 +34,7 @@ import torch
 
 from rvc_tpu_torch.ops.attention import relative_attention_xla
 from rvc_tpu_torch.ops.commons import sequence_mask
-from rvc_tpu_torch.ops.kernels import LAUNCHES, build, recorded
+from rvc_tpu_torch.ops.kernels import LAUNCHES, build, plain_vjp, recorded
 
 HEAD_DIMS = (32, 64, 96, 128)
 MAX_WINDOW = 15          # 2w + 1 <= 31
@@ -68,16 +74,11 @@ def rel_attention_reference(q, k, v, emb_rel_k, emb_rel_v, window_size: int,
     return relative_attention_xla(q, k, v, emb_rel_k, emb_rel_v, window_size, attn_mask)
 
 
-@recorded
-def rel_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  emb_rel_k: torch.Tensor, emb_rel_v: torch.Tensor,
-                  window_size: int, key_lens: torch.Tensor) -> torch.Tensor:
-    """q/k/v (B, H, T, D); emb_rel_* (1 | H, 2w+1, D); key_lens (B,) int ->
-    (B, H, T, D). Query rows at or past a length are garbage."""
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, emb_rel_k: torch.Tensor,
+            emb_rel_v: torch.Tensor, window_size: int, key_lens: torch.Tensor) -> torch.Tensor:
+    """K3's launch on CUDA tensors (the forward of `RelAttentionFunction`)."""
     B, H, T, D = q.shape
     w = window_size
-    if q.device.type == "cpu":
-        return rel_attention_reference(q, k, v, emb_rel_k, emb_rel_v, w, key_lens)
     if q.device.type != "cuda":
         raise ValueError(f"rel_attention: unsupported device {q.device}")
     if D not in HEAD_DIMS or not 0 <= w <= MAX_WINDOW:
@@ -108,3 +109,35 @@ def rel_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     build.check(err, "rel_attention")
     LAUNCHES["rel_attention"] += 1
     return out
+
+
+class RelAttentionFunction(torch.autograd.Function):
+    """K3 under autograd: `forward` (the kernel's launch; any callable with
+    `rel_attention_reference`'s signature) computes the output, the float32
+    plain version's autograd the gradients of q, k, v, emb_rel_k, emb_rel_v."""
+
+    @staticmethod
+    def forward(ctx, forward, window_size, q, k, v, emb_rel_k, emb_rel_v, key_lens):
+        ctx.save_for_backward(q, k, v, emb_rel_k, emb_rel_v, key_lens)
+        ctx.window_size = window_size
+        return forward(q, k, v, emb_rel_k, emb_rel_v, window_size, key_lens)
+
+    @staticmethod
+    def backward(ctx, grad):
+        *floats, key_lens = ctx.saved_tensors
+        w = ctx.window_size
+        grads = plain_vjp(lambda *t: rel_attention_reference(*t, w, key_lens),
+                          floats, ctx.needs_input_grad[2:7], grad)
+        return (None, None) + grads + (None,)
+
+
+@recorded
+def rel_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  emb_rel_k: torch.Tensor, emb_rel_v: torch.Tensor,
+                  window_size: int, key_lens: torch.Tensor) -> torch.Tensor:
+    """q/k/v (B, H, T, D); emb_rel_* (1 | H, 2w+1, D); key_lens (B,) int ->
+    (B, H, T, D). Query rows at or past a length are garbage."""
+    if q.device.type == "cpu":
+        return rel_attention_reference(q, k, v, emb_rel_k, emb_rel_v, window_size, key_lens)
+    return RelAttentionFunction.apply(_launch, window_size, q, k, v, emb_rel_k, emb_rel_v,
+                                      key_lens)

@@ -17,6 +17,14 @@ rounds their conv operands to bf16 at the kernel's places.
 
 Weights take the reference's layout: w1/w2 (S, K, C, C) as (step, tap,
 in, out), b1/b2 (S, C).
+
+On the card both run under autograd (`ChainFunction`, `GroupFunction`):
+the forward is the kernel; the backward re-runs the float32 plain version
+from the saved inputs and takes its autograd (the reference's `_chain_bwd`
+/ `_group_bwd`), so training's gradients are exact float32 ones of the
+chain while the forward keeps the kernel's bf16 operands. The weights are
+rounded to bf16 at every call (`kernel_weights`): in training they change
+at every step.
 """
 
 from __future__ import annotations
@@ -28,7 +36,7 @@ from typing import Sequence
 import torch
 
 from rvc_tpu_torch.ops import conv as conv_ops
-from rvc_tpu_torch.ops.kernels import LAUNCHES, build, recorded
+from rvc_tpu_torch.ops.kernels import LAUNCHES, build, plain_vjp, recorded
 
 CHANNELS = (32, 64, 128, 256)
 
@@ -129,14 +137,9 @@ def _run_chain(x, w1, b1, w2, b2, kernel_size, dilations, slope, out, alpha,
         cur = dst
 
 
-@recorded
-def resblock_chain(x: torch.Tensor, w1, b1, w2, b2, kernel_size: int,
-                   dilations: Sequence[int] = (1, 3, 5),
-                   slope: float = 0.1) -> torch.Tensor:
-    """K2: one ResBlock chain on (B, T, C) float32."""
-    if x.device.type == "cpu":
-        return resblock_chain_reference(x, w1, b1, w2, b2, kernel_size,
-                                        dilations, slope)
+def _launch_chain(x, w1, b1, w2, b2, kernel_size: int, dilations: Sequence[int],
+                  slope: float) -> torch.Tensor:
+    """K2's launches on CUDA tensors (the forward of `ChainFunction`)."""
     _check(x, (w1, b1, w2, b2), "resblock_chain")
     x = _aligned(x)
     out = torch.empty_like(x)
@@ -145,13 +148,9 @@ def resblock_chain(x: torch.Tensor, w1, b1, w2, b2, kernel_size: int,
     return out
 
 
-@recorded
-def resblock_group(x: torch.Tensor, weights: tuple, kernel_sizes: Sequence[int],
-                   dilations: Sequence[Sequence[int]],
-                   slope: float = 0.1) -> torch.Tensor:
-    """K1: mean over one decoder stage's parallel ResBlock chains."""
-    if x.device.type == "cpu":
-        return resblock_group_reference(x, weights, kernel_sizes, dilations, slope)
+def _launch_group(x, weights, kernel_sizes: Sequence[int],
+                  dilations: Sequence[Sequence[int]], slope: float) -> torch.Tensor:
+    """K1's launches on CUDA tensors (the forward of `GroupFunction`)."""
     _check(x, weights, "resblock_group")
     x = _aligned(x)
     out = torch.empty_like(x)
@@ -161,3 +160,65 @@ def resblock_group(x: torch.Tensor, weights: tuple, kernel_sizes: Sequence[int],
                    dilations=dilations[i], slope=slope, out=out, alpha=1.0 / n,
                    beta=0.0 if i == 0 else 1.0, counter="resblock_group")
     return out
+
+
+class ChainFunction(torch.autograd.Function):
+    """K2 under autograd: `forward` (the kernel's launches; any callable
+    with `resblock_chain_reference`'s signature) computes the output, the
+    float32 plain chain's autograd the gradients of x, w1, b1, w2, b2."""
+
+    @staticmethod
+    def forward(ctx, forward, kernel_size, dilations, slope, x, w1, b1, w2, b2):
+        ctx.save_for_backward(x, w1, b1, w2, b2)
+        ctx.args = (kernel_size, dilations, slope)
+        return forward(x, w1, b1, w2, b2, kernel_size, dilations, slope)
+
+    @staticmethod
+    def backward(ctx, grad):
+        k, d, slope = ctx.args
+        grads = plain_vjp(lambda *t: resblock_chain_reference(*t, k, d, slope),
+                          ctx.saved_tensors, ctx.needs_input_grad[4:], grad)
+        return (None,) * 4 + grads
+
+
+class GroupFunction(torch.autograd.Function):
+    """K1 under autograd: `forward` (the kernel's launches; any callable with
+    `resblock_group_reference`'s signature) computes the output, the float32
+    plain stage's autograd the gradients of x and of each tensor of the flat
+    weight tuple, in order."""
+
+    @staticmethod
+    def forward(ctx, forward, kernel_sizes, dilations, slope, x, *weights):
+        ctx.save_for_backward(x, *weights)
+        ctx.args = (kernel_sizes, dilations, slope)
+        return forward(x, weights, kernel_sizes, dilations, slope)
+
+    @staticmethod
+    def backward(ctx, grad):
+        ks, ds, slope = ctx.args
+        grads = plain_vjp(lambda x, *w: resblock_group_reference(x, w, ks, ds, slope),
+                          ctx.saved_tensors, ctx.needs_input_grad[4:], grad)
+        return (None,) * 4 + grads
+
+
+@recorded
+def resblock_chain(x: torch.Tensor, w1, b1, w2, b2, kernel_size: int,
+                   dilations: Sequence[int] = (1, 3, 5),
+                   slope: float = 0.1) -> torch.Tensor:
+    """K2: one ResBlock chain on (B, T, C) float32."""
+    if x.device.type == "cpu":
+        return resblock_chain_reference(x, w1, b1, w2, b2, kernel_size,
+                                        dilations, slope)
+    return ChainFunction.apply(_launch_chain, kernel_size, tuple(dilations), slope,
+                               x, w1, b1, w2, b2)
+
+
+@recorded
+def resblock_group(x: torch.Tensor, weights: tuple, kernel_sizes: Sequence[int],
+                   dilations: Sequence[Sequence[int]],
+                   slope: float = 0.1) -> torch.Tensor:
+    """K1: mean over one decoder stage's parallel ResBlock chains."""
+    if x.device.type == "cpu":
+        return resblock_group_reference(x, weights, kernel_sizes, dilations, slope)
+    return GroupFunction.apply(_launch_group, tuple(kernel_sizes),
+                               tuple(tuple(d) for d in dilations), slope, x, *weights)

@@ -5,7 +5,10 @@
 Hann window, an HTK mel scale with Slaney area normalisation and
 log(clamp 1e-5). `stft` is the complex STFT under it, which FCPE's
 front end also takes (center=False). The mel filterbank is a numpy copy
-of the reference's (same formulas as librosa.filters.mel).
+of the reference's (same formulas as librosa.filters.mel). `spectrogram`
+and `mel_spectrogram` are training's linear and log-mel spectrograms
+(the reference's `spectrogram_torch` / `mel_spectrogram_torch` framing),
+differentiable.
 """
 
 from __future__ import annotations
@@ -46,6 +49,27 @@ def stft(y: torch.Tensor, n_fft: int, hop_length: int, win_length: Optional[int]
     if center:
         y = F.pad(y[:, None], (n_fft // 2, n_fft // 2), mode="reflect")[:, 0]
     return torch.fft.rfft(frame_signal(y, n_fft, hop_length) * window, n=n_fft, dim=-1)
+
+
+def spectrogram(y: torch.Tensor, n_fft: int, hop_length: int, win_length: int) -> torch.Tensor:
+    """Training linear magnitude spectrogram (B, T) -> (B, frames, n_fft // 2 + 1):
+    a reflect pad of (n_fft - hop) // 2 on both sides, a center=False STFT,
+    magnitude sqrt(re^2 + im^2 + 1e-6)."""
+    pad = int((n_fft - hop_length) / 2)
+    y = F.pad(y[:, None], (pad, pad), mode="reflect")[:, 0]
+    z = stft(y, n_fft, hop_length, win_length, center=False)
+    return torch.sqrt(z.real ** 2 + z.imag ** 2 + 1e-6)
+
+
+def mel_spectrogram(y: torch.Tensor, n_fft: int, n_mels: int, sample_rate: int,
+                    hop_length: int, win_length: int, fmin: float = 0.0,
+                    fmax: Optional[float] = None) -> torch.Tensor:
+    """Training log-mel (B, T) -> (B, frames, n_mels): `spectrogram`, the
+    Slaney mel matrix, log(clamp 1e-5)."""
+    spec = spectrogram(y, n_fft, hop_length, win_length)
+    fb = torch.from_numpy(mel_filterbank(sample_rate, n_fft, n_mels, fmin, fmax,
+                                         htk=False)).to(y.device, spec.dtype)
+    return torch.log(torch.clamp(spec @ fb.T, min=1e-5))
 
 
 def _hz_to_mel(f, htk: bool):

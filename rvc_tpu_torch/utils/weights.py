@@ -11,11 +11,13 @@ Native checkpoints (`.safetensors` with a `.json` config sidecar) hold
 `rvc_tpu`'s flat '/'-joined parameter paths: `load_params` / `save_params`
 read and write the file format (no `safetensors` package needed), and
 `synthesizer_from_jax` / `hubert_from_jax` / `rmvpe_from_jax` /
-`crepe_from_jax` / `fcpe_from_jax` map such a tree (weight norm already
-fused) onto the port's state dicts, in torch layouts: conv weights
+`crepe_from_jax` / `fcpe_from_jax` / `discriminator_from_jax` map such a
+tree (weight norm already fused) onto the port's state dicts, in torch layouts: conv weights
 (K, Cin, Cout) -> (Cout, Cin, K), transposed convs (K, Cin, Cout) ->
-(Cin, Cout, K), and the 2-D forms alike. `synthesizer_to_jax` maps a
-synthesizer back, so the port writes native checkpoints too.
+(Cin, Cout, K), and the 2-D forms alike. `synthesizer_to_jax` and
+`discriminator_to_jax` map the port's back, so the port writes native
+checkpoints too (a trainer's G and D, enc_q included, resume in either
+package). `discriminator_from_pth` takes an upstream D checkpoint.
 """
 
 from __future__ import annotations
@@ -113,12 +115,13 @@ def _synth_key(path: str) -> str:
     return key
 
 
-def synthesizer_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+def synthesizer_from_jax(params: Mapping, enc_q: bool = False) -> Dict[str, torch.Tensor]:
     """`rvc_tpu` Synthesizer params -> `models.synthesizer.Synthesizer`
-    state dict. The training-only posterior encoder (`enc_q/*`) is dropped."""
+    state dict. The training-only posterior encoder (`enc_q/*`) is dropped
+    unless enc_q is set (a model built for training)."""
     out = {}
     for path, v in flatten_tree(params).items():
-        if path.startswith("enc_q/"):
+        if path.startswith("enc_q/") and not enc_q:
             continue
         key = _synth_key(path)
         v = np.asarray(v, dtype=np.float32)
@@ -327,11 +330,98 @@ def _tensors(sd: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
 
 
-def synthesizer_from_pth(sd: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+def synthesizer_from_pth(sd: Mapping[str, np.ndarray], enc_q: bool = False
+                         ) -> Dict[str, torch.Tensor]:
     """Upstream Synthesizer state dict (from `load_torch_checkpoint`) -> the
-    port's state dict: weight norm fused, the training-only enc_q dropped."""
+    port's state dict: weight norm fused, the training-only enc_q dropped
+    unless enc_q is set (a model built for training)."""
     fused = fuse_weight_norm({k: v for k, v in sd.items() if k != "__meta__"})
-    return _tensors({k: v for k, v in fused.items() if not k.startswith("enc_q.")})
+    return _tensors({k: v for k, v in fused.items() if enc_q or not k.startswith("enc_q.")})
+
+
+# ---------------------------------------------------------------------------
+# discriminators: the port's keys are upstream's (`discriminators.N.convs.M`,
+# `discriminators.N.conv_post`); rvc_tpu names each one (`disc_s`,
+# `disc_p_<period>`, `disc_r_<n_fft>`)
+# ---------------------------------------------------------------------------
+
+_PERIODS_BY_COUNT = {6: (2, 3, 5, 7, 11, 17), 8: (2, 3, 5, 7, 11, 17, 23, 37),
+                     5: (2, 3, 5, 7, 11)}
+_MRD_NFFT = (1024, 2048, 512)    # DiscriminatorR order (v3)
+
+
+def _disc_names(first_weights: Mapping[int, np.ndarray]) -> Dict[int, str]:
+    """{index: rvc_tpu name} from each discriminator's first conv weight
+    (torch layout): 3-D is DiscriminatorS, (k, 1) taps DiscriminatorP, the
+    rest DiscriminatorR, as `rvc_tpu.utils.weights.
+    convert_discriminator_state_dict` tells them apart."""
+    kinds = {i: "S" if w.ndim == 3 else "P" if w.shape[-1] == 1 else "R"
+             for i, w in first_weights.items()}
+    n_p = sum(k == "P" for k in kinds.values())
+    periods = iter(_PERIODS_BY_COUNT.get(n_p, _PERIODS_BY_COUNT[8]))
+    nffts = iter(_MRD_NFFT)
+    return {i: "disc_s" if k == "S" else f"disc_p_{next(periods)}" if k == "P"
+            else f"disc_r_{next(nffts)}" for i, k in sorted(kinds.items())}
+
+
+def discriminator_to_jax(state: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """A port MultiPeriodDiscriminator state dict -> `rvc_tpu`'s flat
+    '/'-joined parameter paths in its layouts."""
+    firsts = {int(m.group(1)): v.detach().cpu().numpy() for k, v in state.items()
+              if (m := re.fullmatch(r"discriminators\.(\d+)\.convs\.0\.weight", k))}
+    names = _disc_names(firsts)
+    out = {}
+    for key, v in state.items():
+        m = re.fullmatch(r"discriminators\.(\d+)\.(?:convs\.(\d+)|(conv_post))\.(weight|bias)",
+                         key)
+        if m is None:
+            raise ValueError(f"discriminator: no rvc_tpu path for {key!r}")
+        v = v.detach().float().cpu().numpy()
+        if v.ndim == 3:
+            v = v.transpose(2, 1, 0)
+        elif v.ndim == 4:
+            v = v.transpose(2, 3, 1, 0)
+        layer = f"convs_{m.group(2)}" if m.group(2) is not None else "conv_post"
+        out[f"{names[int(m.group(1))]}/{layer}/{m.group(4)}"] = np.ascontiguousarray(v)
+    return out
+
+
+def discriminator_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """`rvc_tpu` MultiPeriodDiscriminator params -> the port's state dict:
+    DiscriminatorS first, the periods in ascending order, then the
+    resolutions in the v3 bank's order."""
+    flat = flatten_tree(params)
+    discs = sorted({p.split("/")[0] for p in flat})
+    periods = sorted(int(d[len("disc_p_"):]) for d in discs if d.startswith("disc_p_"))
+    order = (["disc_s"] + [f"disc_p_{p}" for p in periods]
+             + [f"disc_r_{n}" for n in _MRD_NFFT if f"disc_r_{n}" in discs])
+    if sorted(order) != discs:
+        raise ValueError(f"discriminator: unknown sub-discriminators in {discs}")
+    index = {name: i for i, name in enumerate(order)}
+    out = {}
+    for path, v in flat.items():
+        disc, layer, leaf = path.split("/")
+        layer = layer.replace("convs_", "convs.")
+        v = np.asarray(v, dtype=np.float32)
+        if v.ndim == 3:
+            v = _conv1d(v)
+        elif v.ndim == 4:
+            v = _conv2d(v)
+        out[f"discriminators.{index[disc]}.{layer}.{leaf}"] = torch.from_numpy(np.array(v))
+    return out
+
+
+def discriminator_from_pth(sd: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """An upstream MultiPeriodDiscriminator state dict of layout v1, v2 or v3
+    (`rvc/lib/algorithm/discriminators.py`; from `load_torch_checkpoint`)
+    -> the port's state dict: the weight norm fused in float32 (both
+    namings; spectral norm is not supported). Its keys are the port's."""
+    fused = fuse_weight_norm({k: v for k, v in sd.items() if k != "__meta__"})
+    bad = [k for k in fused if not re.fullmatch(
+        r"discriminators\.\d+\.(?:convs\.\d+|conv_post)\.(?:weight|bias)", k)]
+    if bad:
+        raise ValueError(f"discriminator: unexpected keys {bad[:4]}")
+    return _tensors(fused)
 
 
 # the HF HuBERT / ContentVec keys the port has (the reference's

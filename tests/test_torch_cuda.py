@@ -365,3 +365,158 @@ def test_pool_matches_single_streams_on_the_card(dev):
         for s in range(4):
             single, _, _ = singles[s].on_request(blocks[s], index_rate=0.0)
             np.testing.assert_allclose(pooled[s], single, rtol=0, atol=5e-3)
+
+
+# --- training: K1-K3 under autograd ----------------------------------------
+# The Functions' backward is the plain version's float32 autograd, re-run
+# from the saved inputs: on the same upstream gradient the kernel path's
+# input and weight gradients equal the plain path's up to cuDNN's summation
+# order (rel_l2 < 1e-5). Their forwards stay held at the bars above.
+
+
+def _grads_both_ways(fn, plain, inputs, *args):
+    """(kernel path's grads, plain path's grads) of every input on one
+    upstream gradient, and the kernel path's output."""
+    leaves = [t.detach().clone().requires_grad_() for t in inputs]
+    out = fn(leaves[0], *args[0](leaves[1:]), *args[1:])
+    g = torch.randn(out.shape, device=out.device, generator=_gen(out.device, 99))
+    got = torch.autograd.grad(out, leaves, g)
+    ref_leaves = [t.detach().clone().requires_grad_() for t in inputs]
+    ref = torch.autograd.grad(plain(ref_leaves[0], *args[0](ref_leaves[1:]), *args[1:]),
+                              ref_leaves, g)
+    return got, ref, out
+
+
+@pytest.mark.parametrize("C", [32, 64, 128])
+def test_resblock_group_gradients(dev, C):
+    g = _gen(dev, C)
+    x = torch.randn((2, 700, C), device=dev, generator=g)
+    weights = sum((_weights(dev, g, C, K) for K in (3, 7, 11)), ())
+    ks, dil = (3, 7, 11), ((1, 3, 5),) * 3
+    before = LAUNCHES["resblock_group"]
+    got, ref, out = _grads_both_ways(KR.resblock_group, KR.resblock_group_reference,
+                                     (x, *weights), lambda w: (tuple(w),), ks, dil)
+    assert LAUNCHES["resblock_group"] == before + 9
+    assert len(got) == 13
+    for i, (a, b) in enumerate(zip(got, ref)):
+        assert _rel_l2(a, b) < 1e-5, f"input {i}: rel_l2 {_rel_l2(a, b):.3g}"
+    _assert_bf16_kernel(out.detach(), KR.resblock_group_reference, x, weights, ks, dil)
+
+
+@pytest.mark.parametrize("K", [3, 7, 11])
+def test_resblock_chain_gradients(dev, K):
+    g = _gen(dev, K)
+    x = torch.randn((2, 300, 256), device=dev, generator=g)
+    ws = _weights(dev, g, 256, K)
+    got, ref, _ = _grads_both_ways(KR.resblock_chain, KR.resblock_chain_reference,
+                                   (x, *ws), lambda w: tuple(w), K, (1, 3, 5))
+    for i, (a, b) in enumerate(zip(got, ref)):
+        assert _rel_l2(a, b) < 1e-5, f"input {i}: rel_l2 {_rel_l2(a, b):.3g}"
+
+
+def test_rel_attention_gradients_ragged(dev):
+    """Ragged key_lens; the upstream gradient is zero on the garbage rows,
+    as the TextEncoder's x_mask makes it."""
+    B, H, T, D, w = 2, 2, 300, 96, 10
+    g = _gen(dev, 5)
+    q, k, v = (torch.randn((B, H, T, D), device=dev, generator=g) for _ in range(3))
+    ek, ev = (0.3 * torch.randn((1, 2 * w + 1, D), device=dev, generator=g) for _ in range(2))
+    lens = torch.tensor([300, 171], device=dev, dtype=torch.int32)
+    valid = (torch.arange(T, device=dev)[None, :] < lens[:, None])[:, None, :, None].float()
+    leaves = [t.clone().requires_grad_() for t in (q, k, v, ek, ev)]
+    up = torch.randn((B, H, T, D), device=dev, generator=g) * valid
+    got = torch.autograd.grad(KA.rel_attention(*leaves, w, lens), leaves, up)
+    ref_leaves = [t.clone().requires_grad_() for t in (q, k, v, ek, ev)]
+    ref = torch.autograd.grad(KA.rel_attention_reference(*ref_leaves, w, lens), ref_leaves, up)
+    for i, (a, b) in enumerate(zip(got, ref)):
+        assert _rel_l2(a, b) < 1e-5, f"input {i}: rel_l2 {_rel_l2(a, b):.3g}"
+
+
+def _step_losses_and_grads(cfg, net_g, net_d, batch, draws):
+    """One adversarial step's losses and its G (per module) and D gradients,
+    without the update."""
+    from rvc_tpu_torch.train.train_step import TrainStep, make_optimizers
+
+    g_opt, d_opt = make_optimizers(cfg, net_g, net_d)
+    step = TrainStep(cfg, net_g, net_d, g_opt, d_opt)
+    total, losses, y_hat, real = step.g_losses(batch, **draws)
+    names = [n for n, _ in net_g.named_parameters()]
+    by_module = {}
+    for n, gr in zip(names, step.g_grads(total)):
+        by_module.setdefault(n.split(".")[0], []).append(gr.flatten())
+    d_loss = step.d_loss(real.detach(), y_hat.detach())
+    by_module["D"] = [gr.flatten() for gr in torch.autograd.grad(d_loss, d_opt.params)]
+    losses = {k: float(v.detach()) for k, v in losses.items()}
+    losses.update(loss_d=float(d_loss.detach()), loss_g_total=float(total.detach()))
+    return losses, {k: torch.cat(v).double().cpu() for k, v in by_module.items()}
+
+
+def _bf16_host(monkeypatch):
+    """The decoder's K1/K2 calls on host tensors take the card's arithmetic:
+    their Functions with the plain version's bf16 emulation as the forward."""
+    import functools
+
+    from rvc_tpu_torch.models import generators, layers
+
+    def group(x, weights, kernel_sizes, dilations, slope=0.1):
+        return KR.GroupFunction.apply(
+            functools.partial(KR.resblock_group_reference, bf16_operands=True),
+            tuple(kernel_sizes), tuple(map(tuple, dilations)), slope, x, *weights)
+
+    def chain(x, w1, b1, w2, b2, kernel_size, dilations=(1, 3, 5), slope=0.1):
+        return KR.ChainFunction.apply(
+            functools.partial(KR.resblock_chain_reference, bf16_operands=True),
+            kernel_size, tuple(dilations), slope, x, w1, b1, w2, b2)
+
+    monkeypatch.setattr(generators, "resblock_group", group)
+    monkeypatch.setattr(layers, "resblock_chain", chain)
+
+
+def test_full_width_train_step_matches_the_host(dev, monkeypatch):
+    """One G+D step of the 48 kHz model at full width, batch 2, on the card
+    and on the host: the same parameters, batch and draws. Against the host
+    step with the card's arithmetic (K1/K2's bf16 forward emulated), each
+    loss within rel 2e-2 and gradient corr > 0.99 per module; against the
+    float32 host step, the losses within rel 2e-2 and corr > 0.99 for every
+    module but the decoder (the bf16 forward alone moves its gradient's
+    corr to ~0.98 on the host too)."""
+    import copy
+
+    import numpy as np
+
+    from rvc_tpu_torch.configs import get_config
+    from rvc_tpu_torch.models.discriminators import build_discriminator
+    from rvc_tpu_torch.models.synthesizer import build_synthesizer
+    from rvc_tpu_torch.train.train_step import Batch
+
+    cfg = get_config(48000, train_batch_size=2)
+    torch.manual_seed(0)
+    nets = build_synthesizer(cfg, training=True), build_discriminator(cfg)
+    rng = np.random.default_rng(0)
+    B, T, hop = 2, 60, cfg.data.hop_length
+    t = np.arange(T * hop) / 48000
+    batch = Batch(torch.from_numpy(rng.standard_normal((B, T, 768)).astype(np.float32)),
+                  torch.tensor([60, 50]), torch.from_numpy(rng.integers(1, 255, (B, T))),
+                  torch.full((B, T), 180.0), torch.from_numpy(
+                      np.abs(rng.standard_normal((B, T, 1025))).astype(np.float32)),
+                  torch.tensor([60, 50]),
+                  torch.from_numpy(np.stack([0.3 * np.sin(2 * np.pi * f * t)
+                                             for f in (150, 220)]).astype(np.float32)),
+                  torch.tensor([0, 1]))
+    seg = cfg.segment_frames
+    draws = dict(eps=torch.from_numpy(rng.standard_normal((B, T, 192)).astype(np.float32)),
+                 ids_slice=torch.tensor([10, 3]),
+                 source_noise=torch.from_numpy(
+                     rng.standard_normal((B, seg * 480, 1)).astype(np.float32)))
+    host = _step_losses_and_grads(cfg, *copy.deepcopy(nets), batch, draws)
+    card = _step_losses_and_grads(cfg, *(n.to(dev) for n in nets), batch.to(dev),
+                                  {k: v.to(dev) for k, v in draws.items()})
+    _bf16_host(monkeypatch)
+    host_bf16 = _step_losses_and_grads(cfg, *(n.cpu() for n in nets), batch, draws)
+    for ref, modules in ((host_bf16, ("enc_p", "enc_q", "flow", "dec", "D")),
+                         (host, ("enc_p", "enc_q", "flow", "D"))):
+        for k, v in ref[0].items():
+            assert card[0][k] == pytest.approx(v, rel=2e-2), (k, card[0][k], v)
+        for k in modules:
+            corr = float(torch.corrcoef(torch.stack([card[1][k], ref[1][k]]))[0, 1])
+            assert corr > 0.99, (k, corr)

@@ -36,7 +36,9 @@ def test_import_leaves_jax_out():
             "rvc_tpu_torch.ops.kernels.resblock, rvc_tpu_torch.pitch, "
             "rvc_tpu_torch.models.crepe, rvc_tpu_torch.models.fcpe, rvc_tpu_torch.realtime, "
             "rvc_tpu_torch.realtime.core, rvc_tpu_torch.realtime.pool, "
-            "rvc_tpu_torch.realtime.server, rvc_tpu_torch.realtime.webui\n"
+            "rvc_tpu_torch.realtime.server, rvc_tpu_torch.realtime.webui, "
+            "rvc_tpu_torch.train, rvc_tpu_torch.train.trainer, rvc_tpu_torch.preprocess, "
+            "rvc_tpu_torch.monitoring\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax') or m.startswith('rvc_tpu.') or m == 'rvc_tpu']\n"
             "assert not bad, bad\n")

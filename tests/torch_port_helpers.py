@@ -102,3 +102,67 @@ def rmvpes(seed: int = 2):
             buf.copy_(0.5 + torch.rand(buf.shape, generator=gen))
     params, batch_stats = W.convert_rmvpe_state_dict(numpy_state(port))
     return port, JaxE2E(**SMALL_RMVPE), {"params": params, "batch_stats": batch_stats}
+
+
+# the JAX train-step tests' tiny model (tests/unit/test_train_step.py)
+TRAIN_ARGS = dict(model_spk_embed_dim=2, model_n_layers=1, model_upsample_initial_channel=64,
+                  train_segment_size=320 * 12, train_batch_size=2)
+
+
+def train_configs(**extra):
+    """(JAX config, port config) of the tiny training model."""
+    args = dict(TRAIN_ARGS, **extra)
+    return get_config(32000, **args), port_get_config(32000, **args)
+
+
+def train_pair(seed: int = 0, **extra):
+    """(port G built for training, port D, JAX G params, JAX D params):
+    the port's seeded init carried to JAX through the reference's own
+    upstream converters (`convert_synthesizer_state_dict` keeps enc_q,
+    `convert_discriminator_state_dict`)."""
+    from rvc_tpu_torch.models.discriminators import build_discriminator
+    from rvc_tpu_torch.models.synthesizer import build_synthesizer
+
+    _, cfg = train_configs(**extra)
+    torch.manual_seed(seed)
+    net_g = build_synthesizer(cfg, training=True)
+    net_d = build_discriminator(cfg)
+    return (net_g, net_d, W.convert_synthesizer_state_dict(numpy_state(net_g)),
+            W.convert_discriminator_state_dict(numpy_state(net_d)))
+
+
+def train_batch(cfg, seed: int = 0, B: int = 2, T: int = 24, lengths=(24, 19)):
+    """A numpy batch in the JAX `Batch` field order (phone, phone_lengths,
+    pitch, pitchf, spec, spec_lengths, wave, sid)."""
+    rng = np.random.default_rng(seed)
+    hop = cfg.data.hop_length
+    lengths = np.asarray(lengths, np.int32)
+    f0 = rng.uniform(100.0, 300.0, (B, T)).astype(np.float32)
+    f0[:, T // 3: T // 2] = 0.0
+    return (rng.standard_normal((B, T, 768)).astype(np.float32), lengths,
+            rng.integers(1, 255, (B, T)).astype(np.int32), f0,
+            rng.standard_normal((B, T, cfg.data.spec_channels)).astype(np.float32), lengths,
+            (0.1 * rng.standard_normal((B, T * hop))).astype(np.float32),
+            np.arange(B, dtype=np.int32) % cfg.model.spk_embed_dim)
+
+
+def jax_draws(key, cfg, batch, nsf: bool = True) -> dict:
+    """The draws the JAX step makes from `key` (`train_step.py:216`,
+    `synthesizer.py:121`): the posterior's eps, the segment starts and the
+    NSF source noise, for the port's training forward."""
+    import jax
+    import jax.numpy as jnp
+
+    rng_g, _ = jax.random.split(key)
+    r_post, r_slice, r_dec = jax.random.split(rng_g, 3)
+    B, T = batch[0].shape[:2]
+    seg = cfg.segment_frames
+    eps = np.asarray(jax.random.normal(r_post, (B, T, cfg.model.inter_channels), jnp.float32))
+    max_starts = np.maximum(batch[5] - seg, 0)
+    u = np.asarray(jax.random.uniform(r_slice, (B,)))
+    ids = np.minimum((u * (max_starts + 1).astype(np.float32)).astype(np.int32), max_starts)
+    out = {"eps": t(eps), "ids_slice": t(ids.astype(np.int64))}
+    if nsf:
+        upp = int(np.prod(cfg.model.upsample_rates))
+        out["source_noise"] = t(np.asarray(jax.random.normal(r_dec, (B, seg * upp, 1))))
+    return out
