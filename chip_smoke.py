@@ -135,11 +135,35 @@ Phases, one JSON line each (a `kernel` line per kernel call):
             against the float32 one)
   train_vocoder  the MRF HiFi-GAN and RefineGAN (v3 D) models: 2 steps each
             after a warm one, split, launches (K3 only), memory, a trace
+  longform_mesh  (after `longform`) `BatchConverter` on a mesh naming the
+            card twice (each B = 8 dispatch split 4 + 4, one host thread a
+            shard) against one replica, the first 16 long-form utterances,
+            noise on: wall, audio-s/s, launches (twice the one replica's a
+            dispatch), each utterance at corr > 0.9999; on a mesh of every
+            card too where there are two or more
+  ddp_gloo  (after the train phases) two data-parallel ranks spawned on the
+            card, joined by gloo (NCCL refuses two ranks on one card), the
+            48 kHz model at full width, global batch 8 at bucket 400, 3
+            steps, against the single-card trainer's step on the same batch
+            and draws: step ms per rank, bytes all-reduced and all-gathered
+            a step with ms of one each, ZeRO-1 optimizer bytes per rank
+            against the single card, step-1 losses (rel 1e-4), parameters
+            after the steps (rel_l2 1e-3), the ranks bit-identical, launches
+            per rank (K1 27, K2 9, K3 6 a step)
+  ddp_nccl  `train` through its own bootstrap on the train phase's dataset,
+            one epoch: rank 0 of 1 joined by NCCL at a localhost coordinator
+            (wall, steps/s, launches); one rank a card started by `train`
+            itself where there are two cards or more, else "skipped"
+  tools     model_information, convert, model_blender (the model with its
+            own conversion at 0.5 is the conversion, bit for bit) and
+            audio_analyzer on the train phase's `.pth` export
 Then the `kernels` summary line (per kernel: the sums over its calls; the
 launches of each path's run beside the main path's, `staged_crepe`,
 `staged_rmvpe`, `postfx`, `mrf`, `refinegan` and `longform` among them;
 `realtime` per block and `realtime_pool` per step at N = 16, `extract`
-over the train phase's extraction and `train_step` per step),
+over the train phase's extraction and `train_step` per step;
+`longform_mesh` over its run, `ddp_gloo_rank0` / `ddp_gloo_rank1` over
+their 3 steps and `ddp_nccl` over its epoch),
 the card line, and
 last {"ok": true, "device": {...}}. Any failed check raises: the exit code
 is non-zero and the last line is not printed. Without a CUDA device, or
@@ -2167,6 +2191,7 @@ def phase_train(work: str) -> dict:
     builder = DatasetBuilder(exp)
     train_rows, val_rows = builder.build()
     train_rows += builder.add_mutes(cfg, 2, feature_extractor=fe)
+    builder.write_filelist(os.path.join(exp, "filelist_train.txt"), train_rows)  # for `train`
     torch.cuda.synchronize()
     times["extract_s"] = time.perf_counter() - t0
     extract_launches = dict(LAUNCHES)
@@ -2300,6 +2325,280 @@ def phase_train(work: str) -> dict:
     return {"extract": extract_launches, "train_step": launches}
 
 
+# ---------------------------------------------------------------------------
+# multi-card: data-parallel training, the BatchConverter mesh, the tools
+# ---------------------------------------------------------------------------
+
+DDP_RANKS, DDP_BATCH, DDP_FRAMES, DDP_STEPS = 2, 8, 400, 3   # global batch 8 at bucket 400
+DDP_LOSS_BAR, DDP_PARAM_BAR = 1e-4, 1e-3                      # step-1 losses rel, params rel_l2
+DDP_LOSSES = ("loss_g_total", "loss_d", "loss_mel", "loss_kl", "loss_adv", "loss_fm")
+MESH_UTTS = 16                                                # the long-form phase's first 16
+
+
+def ddp_batch(cfg, seed: int):
+    """A global batch of DDP_BATCH rows at DDP_FRAMES frames (lengths 400
+    down to 330), harmonic waves of 120-260 Hz, random features."""
+    import numpy as np
+    import torch
+
+    from rvc_tpu_torch.train.train_step import Batch
+
+    rng = np.random.default_rng(seed)
+    B, T, hop = DDP_BATCH, DDP_FRAMES, cfg.data.hop_length
+    lengths = torch.tensor([T - 10 * i for i in range(B)])
+    f0 = 120.0 + 20.0 * np.arange(B)
+    t = np.arange(T * hop) / cfg.data.sample_rate
+    wave = 0.3 * np.sin(2 * np.pi * f0[:, None] * t[None, :])
+    return Batch(torch.from_numpy(rng.standard_normal((B, T, 768)).astype(np.float32)), lengths,
+                 torch.from_numpy(rng.integers(1, 255, (B, T))),
+                 torch.from_numpy(np.repeat(f0[:, None], T, 1).astype(np.float32)),
+                 torch.from_numpy(np.abs(rng.standard_normal(
+                     (B, T, cfg.data.spec_channels))).astype(np.float32)),
+                 lengths.clone(), torch.from_numpy(wave.astype(np.float32)),
+                 torch.arange(B) % 2)
+
+
+def flat_rel_l2(got: dict, ref: dict) -> float:
+    """rel_l2 over every tensor of two state dicts, concatenated."""
+    import torch
+
+    g = torch.cat([got[k].double().flatten().cpu() for k in ref])
+    r = torch.cat([v.double().flatten().cpu() for v in ref.values()])
+    return float((g - r).norm() / r.norm())
+
+
+def phase_ddp_gloo(work: str) -> dict:
+    """Two data-parallel ranks (`parallel.train.spawn` of `trainer_job`,
+    gloo, both on the first card) at full width, DDP_STEPS steps on a global
+    batch of DDP_BATCH, against the single-card trainer's step on the same
+    batch and draws (one generator seeded alike). Returns each rank's
+    launches over its steps."""
+    import numpy as np
+    import torch
+
+    from rvc_tpu_torch.configs import config_to_dict, get_config
+    from rvc_tpu_torch.monitoring import NullTracker
+    from rvc_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from rvc_tpu_torch.parallel.train import spawn, state_bytes_per_device, trainer_job
+    from rvc_tpu_torch.train.data import DataLoader, RVCDataset
+    from rvc_tpu_torch.train.trainer import RVCTrainer
+
+    cfg = get_config(48000, train_batch_size=DDP_BATCH, **TRAIN_CFG)
+    batch = ddp_batch(cfg, SEED)
+    job = os.path.join(work, "ddp_job.pt")
+    torch.save({"config": config_to_dict(cfg), "seed": SEED, "device": TRAIN_DEVICE,
+                "batch": tuple(batch), "steps": DDP_STEPS, "draws": None}, job)
+    t0 = time.perf_counter()
+    spawn(trainer_job, DDP_RANKS, (job,), backend="gloo", device=TRAIN_DEVICE)
+    spawn_s = time.perf_counter() - t0
+    ranks = [torch.load(f"{job}.rank{r}", weights_only=False) for r in range(DDP_RANKS)]
+
+    trainer = RVCTrainer(cfg, DataLoader(RVCDataset([], cfg.data.hop_length), 1),
+                         checkpoint_dir=work, seed=SEED, tracker=NullTracker(),
+                         device=TRAIN_DEVICE)
+    step, b = trainer.step_fn(True), batch.to(TRAIN_DEVICE)
+    ref, ms = [], []
+    torch.cuda.synchronize()
+    reset_launches()
+    for _ in range(DDP_STEPS):
+        t0 = time.perf_counter()
+        m = step(b, trainer.generator)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        ref.append({k: float(v) for k, v in m.items()})
+    single_launches = dict(LAUNCHES)
+    single_bytes = state_bytes_per_device(trainer.net_g, trainer.net_d, trainer.g_opt,
+                                          trainer.d_opt, 1)
+    g_ref = {k: v.detach() for k, v in trainer.net_g.state_dict().items()}
+    d_ref = {k: v.detach() for k, v in trainer.net_d.state_dict().items()}
+
+    loss_rel = [{k: abs(r["metrics"][0][k] - ref[0][k]) / max(abs(ref[0][k]), 1e-12)
+                 for k in DDP_LOSSES} for r in ranks]
+    params = [{"G": flat_rel_l2(r["g"], g_ref), "D": flat_rel_l2(r["d"], d_ref)} for r in ranks]
+    identical = all(torch.equal(ranks[0][n][k], r[n][k]) for r in ranks[1:]
+                    for n in ("g", "d") for k in ranks[0][n])
+    want = {k: n * DDP_STEPS for k, n in TRAIN_LAUNCHES.items()}
+    out = {"phase": "ddp_gloo", "ranks": DDP_RANKS, "backend": "gloo",
+           "devices": [TRAIN_DEVICE] * DDP_RANKS,
+           "config": f"get_config(48000, **{TRAIN_CFG}), random init from seed {SEED}",
+           "global_batch": DDP_BATCH, "frames": DDP_FRAMES, "steps": DDP_STEPS,
+           "spawn_s": spawn_s, "step_ms_per_rank": [r["step_ms"] for r in ranks],
+           "single_card_step_ms": ms,
+           "all_reduce_bytes_per_step": ranks[0]["all_reduced_bytes"] / DDP_STEPS,
+           "all_gather_bytes_per_step": ranks[0]["all_gathered_bytes"] / DDP_STEPS,
+           "comm_ms_per_rank": [r["comm_ms"] for r in ranks],
+           "zero1_bytes": {"per_rank": ranks[0]["state_bytes"], "single_card": single_bytes},
+           "step1_loss_rel": loss_rel, "params_rel_l2_after_steps": params,
+           "ranks_bit_identical": identical,
+           "launches_per_rank": [r["launches"] for r in ranks],
+           "single_card_launches": single_launches,
+           "metrics_rank0": ranks[0]["metrics"], "metrics_single_card": ref}
+    emit(out)
+    ok = (identical and all(r < DDP_LOSS_BAR for x in loss_rel for r in x.values())
+          and all(v < DDP_PARAM_BAR for p in params for v in p.values())
+          and all(r["launches"] == want for r in ranks) and single_launches == want)
+    if not ok:
+        raise AssertionError(f"two gloo ranks against the single card: losses {loss_rel}, "
+                             f"params {params}, identical {identical}, launches "
+                             f"{[r['launches'] for r in ranks]} (want {want})")
+    del trainer, step
+    return {f"ddp_gloo_rank{i}": r["launches"] for i, r in enumerate(ranks)}
+
+
+def _cli_train(argv: list) -> tuple:
+    """(stdout, wall s, launches) of `cli.main(argv)` in this process, the
+    counts set to 0 just before and read just after."""
+    import io
+
+    import torch
+
+    from rvc_tpu_torch import cli
+    from rvc_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli.main(argv)
+    torch.cuda.synchronize()
+    return buf.getvalue(), time.perf_counter() - t0, dict(LAUNCHES)
+
+
+def phase_ddp_nccl(work: str) -> dict:
+    """`train` through its own bootstrap on the train phase's dataset, one
+    epoch: rank 0 of 1 joined by NCCL at a localhost coordinator (the
+    data-parallel step at world size 1); with two cards or more, also one
+    rank a card started by `train` itself at the same global batch, with
+    steps/s per card count. Returns the world-size-1 run's launches."""
+    import torch
+
+    from rvc_tpu_torch.parallel.train import free_port
+
+    logs = os.path.join(work, "logs")
+    base = ["train", "--model_name", "voice", "--logs_dir", logs, "--sample_rate", "48000",
+            "--total_epoch", "1", "--save_every_epoch", "10", "--cleanup"]
+    if TRAIN_CFG:
+        base += ["--config_overrides", json.dumps(TRAIN_CFG)]
+    if TRAIN_DEVICE == "cpu":
+        base += ["--device", "cpu"]
+    log = os.path.join(logs, "voice", "ckpt", "train_log.jsonl")
+
+    def epoch():
+        with open(log) as f:
+            e = json.loads(f.read().splitlines()[-1])
+        return {"batches": e["batches"], "seconds": e["seconds"],
+                "steps_per_s": e["batches"] / e["seconds"], "loss_g_total": e["loss_g_total"]}
+
+    text, wall_s, launches = _cli_train(base + [
+        "--batch_size", str(TRAIN_BATCH), "--coordinator", f"localhost:{free_port()}",
+        "--num_hosts", "1", "--host_id", "0"])
+    result = json.loads(text.strip().splitlines()[-1])
+    backend = re.search(r"'backend': '(\w+)'", text)
+    one = {"world_size": 1, "backend": backend.group(1) if backend else None, "wall_s": wall_s,
+           "epoch": epoch(), "result": result, "launches": launches}
+    want = "gloo" if TRAIN_DEVICE == "cpu" else "nccl"
+    if (one["backend"] != want or result["host"] != 0 or not result["model"]
+            or not all(launches[k] > 0 for k in ("resblock_group", "resblock_chain",
+                                                  "rel_attention"))):
+        raise AssertionError(f"train at world size 1 through its bootstrap: {one}")
+    n = torch.cuda.device_count()
+    if n >= 2 and TRAIN_DEVICE == "cuda":
+        text, wall_s, _ = _cli_train(base + ["--batch_size", str(max(1, TRAIN_BATCH // n))])
+        multi = {"cards": n, "wall_s": wall_s, "epoch": epoch(),
+                 "steps_per_s_per_card_count": {1: one["epoch"]["steps_per_s"],
+                                                n: epoch()["steps_per_s"]}}
+    else:
+        multi = {"skipped": f"{n} card"}
+    emit({"phase": "ddp_nccl", "world_size_1": one, "one_rank_a_card": multi})
+    return {"ddp_nccl": launches}
+
+
+def phase_longform_mesh(rvc) -> dict:
+    """BatchConverter on a mesh naming the first card twice (two shards of
+    each B = LONG_BATCH dispatch from two host threads) against one replica,
+    on the long-form phase's first MESH_UTTS utterances with the source
+    noise on; on a mesh over every card too where there are two or more.
+    Each utterance within the long-form phase's bar (corr > 0.9999).
+    Returns the twice-named mesh's launches."""
+    import numpy as np
+    import torch
+
+    from rvc_tpu_torch.parallel import BatchConverter
+    from rvc_tpu_torch.parallel.mesh import make_mesh
+
+    utts = synth_utterances(MESH_UTTS, LONG_S)
+    dispatches = math.ceil(MESH_UTTS * math.ceil(LONG_S / CHUNK_S) / LONG_BATCH)
+    meshes = {"one_replica": None, "card_twice": make_mesh(devices=[rvc.device] * 2)}
+    if torch.cuda.device_count() >= 2:
+        meshes["every_card"] = make_mesh(devices=[f"cuda:{i}"
+                                                  for i in range(torch.cuda.device_count())])
+    runs, ref = {}, None
+    for name, mesh in meshes.items():
+        bc = BatchConverter(rvc, mesh)
+        bc.convert_long_batch(utts[:1], chunk_seconds=CHUNK_S, pad_seconds=PAD_S,
+                              batch_size=LONG_BATCH)               # warm
+        outs, wall_s, launches = timed_long(bc, utts, LONG_BATCH)
+        run = {"devices": [str(d) for d in bc.devices], "wall_s": wall_s,
+               "audio_s_per_s": MESH_UTTS * LONG_S / wall_s, "launches": launches,
+               "launches_per_dispatch": {k: v / dispatches for k, v in launches.items()}}
+        if ref is None:
+            ref = outs
+        else:
+            run["vs_one_replica"] = {
+                "min_corr": min(float(np.corrcoef(o, r)[0, 1]) for o, r in zip(outs, ref)),
+                "max_abs": max(float(np.abs(o - r).max()) for o, r in zip(outs, ref))}
+        runs[name] = run
+        del bc
+    emit({"phase": "longform_mesh", "utterances": MESH_UTTS, "utterance_s": LONG_S,
+          "batch_size": LONG_BATCH, "dispatches": dispatches, "runs": runs})
+    twice = runs["card_twice"]
+    want = {k: 2 * n * dispatches for k, n in LONG_LAUNCHES.items()}
+    bad = [k for k, r in runs.items() if "vs_one_replica" in r
+           and not r["vs_one_replica"]["min_corr"] > 0.9999]
+    if bad or twice["launches"] != want:
+        raise AssertionError(f"the mesh against one replica: {bad}, launches "
+                             f"{twice['launches']} (want {want})")
+    return {"longform_mesh": twice["launches"]}
+
+
+def phase_tools(work: str) -> None:
+    """model_information, convert, model_blender and audio_analyzer on the
+    train phase's `.pth` export (a blend of the model with its own
+    conversion at 0.5 is the conversion, bit for bit)."""
+    import numpy as np
+
+    from rvc_tpu_torch.tools import model_tools
+    from rvc_tpu_torch.utils import weights as W
+    from rvc_tpu_torch.utils.audio import save_wav
+
+    pth = os.path.join(work, "logs", "voice", "voice.pth")
+    times = {}
+    t0 = time.perf_counter()
+    info = model_tools.model_information(pth)
+    times["model_information_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    conv = model_tools.convert_model(pth, os.path.join(work, "voice_conv.safetensors"))
+    times["convert_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    blend = model_tools.blend_models(pth, conv, 0.5, os.path.join(work, "blend.safetensors"))
+    times["model_blender_s"] = time.perf_counter() - t0
+    a, b = W.load_params(conv), W.load_params(blend)
+    same = a.keys() == b.keys() and all(np.array_equal(a[k], b[k]) for k in a)
+    wav = os.path.join(work, "clip.wav")
+    save_wav(wav, test_clip(PARITY_S, SEED + 3), 16000)
+    t0 = time.perf_counter()
+    analysis = model_tools.analyze_audio(wav, os.path.join(work, "analysis.png"))
+    times["audio_analyzer_s"] = time.perf_counter() - t0
+    emit({"phase": "tools", "model_information": {k: info.get(k) for k in (
+              "n_params", "n_tensors", "sr", "f0", "version")},
+          "converted_tensors": len(a), "blend_equals_conversion": same,
+          "audio_analyzer": {k: v for k, v in analysis.items() if k != "path"}, "times": times})
+    if not (same and info.get("sr") == 48000 and analysis["samples"] == int(PARITY_S * 16000)
+            and os.path.exists(analysis.get("plot_path") or "")):
+        raise AssertionError(f"tools: blend {same}, info {info.get('sr')}, {analysis}")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2382,9 +2681,13 @@ def main() -> int:
         realtime_launches = phase_realtime(rvc, cpu_rvc, index_path)
     del cpu_rvc
     longform_launches = phase_longform(rvc)
+    mesh_launches = phase_longform_mesh(rvc)
     del rvc
     with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as work:
         train_launches = phase_train(work)
+        ddp_launches = phase_ddp_gloo(work)
+        nccl_launches = phase_ddp_nccl(work)
+        phase_tools(work)
     for entry, name in zip(summary, KERNELS):
         entry["launches_by_path"] = {"pipeline": launches[name],
                                      "retrieval": retrieval_launches[name],
@@ -2394,7 +2697,10 @@ def main() -> int:
                                      **{k: v[name] for k, v in vocoder_launches.items()},
                                      "longform": longform_launches[name],
                                      **{k: v[name] for k, v in realtime_launches.items()},
-                                     **{k: v[name] for k, v in train_launches.items()}}
+                                     **{k: v[name] for k, v in train_launches.items()},
+                                     **{k: v[name] for k, v in mesh_launches.items()},
+                                     **{k: v[name] for k, v in ddp_launches.items()},
+                                     **{k: v[name] for k, v in nccl_launches.items()}}
 
     emit({"kernels": summary})
     print(card, flush=True)

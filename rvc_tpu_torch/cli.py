@@ -1,6 +1,8 @@
 """Command line of the port (counterpart of `rvc_tpu/cli.py`): the `infer`,
-`batch_infer`, `serve`, `preprocess`, `extract`, `train` and `index`
-subcommands, with the reference's flag names and defaults, plus `--device`.
+`batch_infer`, `serve`, `preprocess`, `extract`, `train`, `index`,
+`audio_analyzer`, `convert`, `model_information`, `model_blender` and
+`tensorboard` subcommands, with the reference's flag names and defaults,
+plus `--device`.
 
     python -m rvc_tpu_torch.cli infer --input_path in.wav --output_path out.wav \\
         --model_path model.pth --index_path model.index
@@ -28,7 +30,21 @@ make a voice model from a folder of recordings (speaker ids from numbered
 subfolders) under `logs/m/`: sliced audio, then HuBERT features, RMVPE f0
 and spectrograms on the card, then GAN training; `train` ends with
 `logs/m/m.safetensors` (+ `.json`) for `infer`, and `--index_algorithm`
-also builds `logs/m/m.index` (as `index` does).
+also builds `logs/m/m.index` (as `index` does). On a machine with several
+cards `train` starts one rank a card itself (data parallel, ZeRO-1
+moments); across machines run one process a card with `--coordinator
+host:port --num_hosts N --host_id i` (`--batch_size` is each rank's).
+
+    python -m rvc_tpu_torch.cli model_information --model_path m.pth
+    python -m rvc_tpu_torch.cli model_blender --pth_path_1 a.pth --pth_path_2 b.pth
+    python -m rvc_tpu_torch.cli convert --pth_path m.pth
+    python -m rvc_tpu_torch.cli audio_analyzer --input_path in.wav
+    python -m rvc_tpu_torch.cli tensorboard --logs_path logs
+
+are host tools (`tools/model_tools.py`, `tools/plot_logs.py`): a model's
+metadata, a blend of two models, an upstream `.pth` as `.safetensors`, an
+audio file's levels and spectrum, and the training curves (tensorboard
+where it is installed, else PNG plots of the JSONL logs).
 """
 
 from __future__ import annotations
@@ -274,17 +290,66 @@ def _default_pretrains(args: argparse.Namespace):
     return g, d
 
 
+def _spawns_ranks(args: argparse.Namespace) -> int:
+    """The ranks `train` starts itself: one a card where no coordinator is
+    given (flag or environment) and the card's run sees several; else 0."""
+    import torch
+    import torch.distributed as dist
+
+    from rvc_tpu_torch.utils.device import resolve_device
+
+    given = (args.coordinator or args.num_hosts or os.environ.get("COORDINATOR_ADDRESS")
+             or os.environ.get("MASTER_ADDR"))
+    if given or dist.is_initialized() or resolve_device(args.device).type != "cuda":
+        return 0
+    n = torch.cuda.device_count()
+    return n if n > 1 else 0
+
+
 def cmd_train(args: argparse.Namespace) -> None:
     """Train on the experiment's filelist and export the inference model
-    (`rvc_tpu/cli.py:cmd_train`, on one card)."""
+    (`rvc_tpu/cli.py:cmd_train`): on one card, on one rank a card of this
+    machine, or as rank --host_id of --num_hosts joined at --coordinator."""
+    import torch.distributed as dist
+
+    from rvc_tpu_torch.parallel import distributed
+    from rvc_tpu_torch.parallel.mesh import TP_NOT_PORTED
+
+    if args.mesh_model > 1:
+        raise NotImplementedError(TP_NOT_PORTED)
+    ranks = _spawns_ranks(args)
+    if ranks:
+        from rvc_tpu_torch.parallel.train import cli_train, spawn
+
+        spawn(cli_train, ranks, (args,))
+        return
+    joins = not dist.is_initialized()
+    info = distributed.initialize(args.coordinator, args.num_hosts, args.host_id,
+                                  device=args.device)
+    try:
+        _train(args, info)
+    finally:
+        if joins and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _train(args: argparse.Namespace, info: dict) -> None:
+    """`train` on this process's rank (of one, without a process group)."""
     import numpy as np
+    import torch.distributed as dist
 
     from rvc_tpu_torch.configs import get_config
+    from rvc_tpu_torch.parallel import distributed
     from rvc_tpu_torch.preprocess import DatasetBuilder
     from rvc_tpu_torch.train.data import DataLoader, RVCDataset
     from rvc_tpu_torch.train.trainer import RVCTrainer
     from rvc_tpu_torch.utils.device import resolve_device
 
+    shard = distributed.host_shard_info()
+    mesh = distributed.global_mesh(args.mesh_model) if dist.is_initialized() else None
+    main_rank = shard["host_id"] == 0
+    if main_rank and mesh is not None:
+        print(f"distributed: {info}; mesh={mesh.shape}; hosts={shard['num_hosts']}")
     device = resolve_device(args.device)
     exp_dir = os.path.join(args.logs_dir, args.model_name)
     overrides = json.loads(args.config_overrides) if args.config_overrides else {}
@@ -306,11 +371,14 @@ def cmd_train(args: argparse.Namespace) -> None:
         batch_size = calculate_recommended_batch_size(minutes)
         print(f"auto batch size: {batch_size} ({minutes:.1f} min of audio)")
     ckpt_dir = os.path.join(exp_dir, "ckpt")
-    if args.cleanup and os.path.isdir(ckpt_dir):
+    if args.cleanup and main_rank and os.path.isdir(ckpt_dir):
         import shutil
 
         shutil.rmtree(ckpt_dir)
+    if mesh is not None:
+        dist.barrier()
     loader = DataLoader(RVCDataset(rows, cfg.data.hop_length), batch_size,
+                        num_hosts=shard["num_hosts"], host_id=shard["host_id"],
                         shuffle=not args.no_shuffle)
     trainer = RVCTrainer(cfg, loader, checkpoint_dir=ckpt_dir,
                          use_overtraining_detector=args.overtraining_detector,
@@ -319,7 +387,8 @@ def cmd_train(args: argparse.Namespace) -> None:
                          save_only_latest=args.save_only_latest,
                          save_every_weights=args.save_every_weights,
                          cache_data_on_device=args.cache_data_in_gpu,
-                         model_name=args.model_name, use_aim=args.use_aim, device=device)
+                         model_name=args.model_name, use_aim=args.use_aim, mesh=mesh,
+                         device=device)
     g_path, d_path = args.g_pretrained_path, args.d_pretrained_path
     if args.custom_pretrained and not (g_path or d_path):
         raise SystemExit("--custom_pretrained requires --g_pretrained_path/--d_pretrained_path")
@@ -328,16 +397,18 @@ def cmd_train(args: argparse.Namespace) -> None:
     if g_path or d_path:
         trainer.load_pretrained(g_path, d_path)
     result = trainer.train(args.total_epoch, save_every=args.save_every_epoch)
-    final = trainer.export_inference_model(
-        os.path.join(exp_dir, f"{args.model_name}.safetensors"))
-    if args.index_algorithm:
-        try:
-            cmd_index(args)
-        except SystemExit as e:  # no features: the trained model stands
-            print(f"warning: post-training index build failed ({e}); run `index` by hand",
-                  file=sys.stderr)
+    final = None
+    if main_rank:
+        final = trainer.export_inference_model(
+            os.path.join(exp_dir, f"{args.model_name}.safetensors"))
+        if args.index_algorithm:
+            try:
+                cmd_index(args)
+            except SystemExit as e:  # no features: the trained model stands
+                print(f"warning: post-training index build failed ({e}); run `index` by "
+                      f"hand", file=sys.stderr)
     print(json.dumps({"epochs_run": result["epochs_run"], "best_loss": result["best_loss"],
-                      "model": final}))
+                      "model": final, "host": shard["host_id"]}))
 
 
 def cmd_index(args: argparse.Namespace) -> None:
@@ -372,7 +443,7 @@ def cmd_index(args: argparse.Namespace) -> None:
 
 def _add_train_args(sub) -> None:
     """preprocess, extract, train and index: `rvc_tpu/cli.py:570-675`'s flags
-    and defaults, --device added; the distributed flags are not taken."""
+    and defaults (the distributed ones included), --device added."""
     p = sub.add_parser("preprocess")
     p.add_argument("--model_name", required=True)
     p.add_argument("--dataset_path", required=True)
@@ -433,7 +504,9 @@ def _add_train_args(sub) -> None:
     p.add_argument("--auto_batch_size", action="store_true",
                    help="pick the batch size from dataset length")
     p.add_argument("--gpu", default=None,
-                   help="accepted for the reference CLI's sake and ignored (--device)")
+                   help="accepted for the reference CLI's sake and ignored: --device picks "
+                        "the device, and train takes every visible card (CUDA_VISIBLE_DEVICES "
+                        "limits them)")
     p.add_argument("--overtraining_detector", action="store_true")
     p.add_argument("--overtraining_threshold", type=int, default=50)
     p.add_argument("--overtraining_patience", type=int, default=10)
@@ -449,6 +522,15 @@ def _add_train_args(sub) -> None:
                    help="recompute the decoder in the backward pass (activation checkpointing)")
     p.add_argument("--use_aim", action="store_true",
                    help="track with Aim (raises if aim is not installed)")
+    # one rank a card; without --coordinator, one rank for each visible card
+    p.add_argument("--coordinator", default=None,
+                   help="host:port of rank 0 (or a tcp:// / file:// URL) for multi-process "
+                        "training")
+    p.add_argument("--num_hosts", type=int, default=None,
+                   help="ranks in all (one process a card)")
+    p.add_argument("--host_id", type=int, default=None, help="this process's rank")
+    p.add_argument("--mesh_model", type=int, default=1,
+                   help="model-parallel axis size (only 1: tensor parallelism is not ported)")
     p.add_argument("--config_overrides", default=None,
                    help='JSON dict of get_config kwargs, e.g. \'{"model_n_layers": 2}\'')
     p.add_argument("--no_shuffle", action="store_true",
@@ -462,6 +544,90 @@ def _add_train_args(sub) -> None:
     p.add_argument("--index_algorithm", default="Auto", choices=["Auto", "Faiss", "KMeans"])
     p.add_argument("--device", default=None, help=_DEVICE_HELP)
     p.set_defaults(fn=cmd_index)
+
+
+def cmd_tensorboard(args: argparse.Namespace) -> None:
+    """tensorboard on the logs directory where it is installed; otherwise
+    the JSONL tracker curves plotted to PNGs (`rvc_tpu/cli.py:182-209`)."""
+    import glob
+    import subprocess
+
+    try:
+        import tensorboard  # noqa: F401
+
+        subprocess.run([sys.executable, "-m", "tensorboard.main", "--logdir", args.logs_path],
+                       check=True)
+        return
+    except (ImportError, OSError, subprocess.CalledProcessError) as e:
+        print(f"tensorboard unavailable ({e.__class__.__name__}); falling back to JSONL "
+              f"curve plots", file=sys.stderr)
+    from rvc_tpu_torch.tools.plot_logs import plot
+
+    logs = sorted(glob.glob(os.path.join(args.logs_path, "**", "*.jsonl"), recursive=True))
+    if os.path.isfile(args.logs_path):
+        logs = [args.logs_path]
+    if not logs:
+        print(f"no tensorboard and no .jsonl tracker logs under {args.logs_path!r}",
+              file=sys.stderr)
+        sys.exit(2)
+    for log in logs:
+        print(plot(log, args.out_path))
+
+
+def cmd_audio_analyzer(args: argparse.Namespace) -> None:
+    from rvc_tpu_torch.tools.model_tools import analyze_audio
+
+    print(json.dumps(analyze_audio(args.input_path, args.plot_path), indent=2))
+
+
+def cmd_convert(args: argparse.Namespace) -> None:
+    from rvc_tpu_torch.tools.model_tools import convert_model
+
+    print(f"wrote {convert_model(args.pth_path, args.output_path)}")
+
+
+def cmd_model_information(args: argparse.Namespace) -> None:
+    from rvc_tpu_torch.tools.model_tools import model_information
+
+    print(json.dumps(model_information(args.model_path), indent=2, default=str))
+
+
+def cmd_model_blender(args: argparse.Namespace) -> None:
+    from rvc_tpu_torch.tools.model_tools import blend_models
+
+    print(f"wrote {blend_models(args.pth_path_1, args.pth_path_2, args.ratio, args.output_path)}")
+
+
+def _add_tool_args(sub) -> None:
+    """The host tools: `rvc_tpu/cli.py:547-568, 717-723`'s flags and defaults."""
+    p = sub.add_parser("audio_analyzer")
+    p.add_argument("--input_path", required=True)
+    p.add_argument("--plot_path", default="logs/audio_analysis.png",
+                   help="3-panel analysis figure output (empty string disables)")
+    p.set_defaults(fn=cmd_audio_analyzer)
+
+    p = sub.add_parser("convert")
+    p.add_argument("--pth_path", required=True)
+    p.add_argument("--output_path", default=None)
+    p.set_defaults(fn=cmd_convert)
+
+    p = sub.add_parser("model_information")
+    p.add_argument("--model_path", required=True)
+    p.set_defaults(fn=cmd_model_information)
+
+    p = sub.add_parser("model_blender")
+    p.add_argument("--pth_path_1", required=True)
+    p.add_argument("--pth_path_2", required=True)
+    p.add_argument("--ratio", type=float, default=0.5)
+    p.add_argument("--output_path", default="blended.safetensors")
+    p.set_defaults(fn=cmd_model_blender)
+
+    p = sub.add_parser("tensorboard",
+                       help="launch tensorboard on the logs dir, or render the JSONL tracker "
+                            "curves to a PNG when tensorboard is unavailable")
+    p.add_argument("--logs_path", default="logs")
+    p.add_argument("--out_path", default=None)
+    p.set_defaults(fn=cmd_tensorboard)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -487,6 +653,7 @@ def build_parser() -> argparse.ArgumentParser:
     _add_serve_args(p)
     p.set_defaults(fn=cmd_serve)
     _add_train_args(sub)
+    _add_tool_args(sub)
     return parser
 
 

@@ -17,7 +17,7 @@ import torch
 from torch import nn
 
 from rvc_tpu_torch.models.layers import Conv1d, LayerNorm, WaveNet, leaky_relu
-from rvc_tpu_torch.ops.commons import sequence_mask
+from rvc_tpu_torch.ops.commons import draw, sequence_mask
 from rvc_tpu_torch.ops.kernels.attention import rel_attention
 
 
@@ -144,6 +144,6 @@ class PosteriorEncoder(nn.Module):
         if eps is None:
             if generator is None:
                 raise ValueError("PosteriorEncoder needs eps or a generator to draw it")
-            eps = torch.randn(m.shape, generator=generator, device=m.device)
+            eps = draw(torch.randn, m.shape, generator, m.device)
         z = (m + eps * torch.exp(logs)) * x_mask
         return z, m, logs, x_mask

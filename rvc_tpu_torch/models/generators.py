@@ -26,6 +26,7 @@ from rvc_tpu_torch.models.layers import (
     init_normal,
     leaky_relu,
 )
+from rvc_tpu_torch.ops.commons import draw
 from rvc_tpu_torch.ops.kernels.resblock import resblock_group
 
 GROUP_MAX_CHANNELS = 128
@@ -72,7 +73,7 @@ def sine_source(f0: torch.Tensor, upp: int, sample_rate: int, harmonic_num: int 
     voiced = (f0 > voiced_threshold).float()[:, :, None].repeat_interleave(upp, dim=1)
     noise_amp = voiced * noise_std + (1.0 - voiced) * (sine_amp / 3.0)
     if noise is None:
-        noise = (torch.randn(sines.shape, generator=generator, device=f0.device)
+        noise = (draw(torch.randn, sines.shape, generator, f0.device)
                  if generator is not None else torch.zeros_like(sines))
     return sines * voiced + noise_amp * noise, voiced
 

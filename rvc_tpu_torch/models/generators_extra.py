@@ -26,6 +26,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from rvc_tpu_torch.models.layers import Conv1d, ConvTranspose1d, init_normal, leaky_relu
+from rvc_tpu_torch.ops.commons import draw
 
 
 def audio_rate_sines(f0: torch.Tensor, sample_rate: int, harmonic_num: int = 0,
@@ -50,7 +51,7 @@ def audio_rate_sines(f0: torch.Tensor, sample_rate: int, harmonic_num: int = 0,
     # samples one by one in float32, slowly and with a drifting phase
     rad = torch.fmod(f0.transpose(1, 2) * mult / sample_rate, 1.0)
     if generator is not None:
-        rand_ini = torch.rand((B, dims), generator=generator, device=f0.device)
+        rand_ini = draw(torch.rand, (B, dims), generator, f0.device)
         rand_ini[:, 0] = 0.0
         rad = torch.cat([rad[:, :, :1] + rand_ini[:, :, None], rad[:, :, 1:]], dim=2)
     tmp = torch.fmod(torch.cumsum(rad, dim=2), 1.0)
@@ -62,8 +63,7 @@ def audio_rate_sines(f0: torch.Tensor, sample_rate: int, harmonic_num: int = 0,
     noise_amp = uv * noise_std + (1.0 - uv) * (sine_amp / 3.0)
     if generator is None:
         return sines * uv
-    return sines * uv + noise_amp * torch.randn(sines.shape, generator=generator,
-                                                device=f0.device)
+    return sines * uv + noise_amp * draw(torch.randn, sines.shape, generator, f0.device)
 
 
 class SourceModuleAudioRate(nn.Module):
@@ -229,7 +229,7 @@ class AdaIN(nn.Module):
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None):
         if generator is not None:
-            x = x + torch.randn(x.shape, generator=generator, device=x.device) * self.weight
+            x = x + draw(torch.randn, x.shape, generator, x.device) * self.weight
         return leaky_relu(x, self.slope)
 
 

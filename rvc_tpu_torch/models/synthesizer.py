@@ -26,7 +26,7 @@ from rvc_tpu_torch.models.encoders import PosteriorEncoder, TextEncoder
 from rvc_tpu_torch.models.flow import ResidualCouplingBlock
 from rvc_tpu_torch.models.generators import HiFiGANGenerator, HiFiGANNSFGenerator
 from rvc_tpu_torch.models.generators_extra import HiFiGANMRFGenerator, RefineGANGenerator
-from rvc_tpu_torch.ops.commons import rand_slice_segments, slice_segments
+from rvc_tpu_torch.ops.commons import draw, rand_slice_segments, slice_segments
 
 SOURCE_NOISE_SEED = 0x5EED
 
@@ -117,8 +117,8 @@ class Synthesizer(nn.Module):
             if source_noise is None:
                 if generator is None:
                     raise ValueError("the NSF decoder needs source_noise or a generator")
-                source_noise = torch.randn((z.shape[0], seg * self.dec.upp, 1),
-                                           generator=generator, device=z.device)
+                source_noise = draw(torch.randn, (z.shape[0], seg * self.dec.upp, 1),
+                                    generator, z.device)
             f0 = slice_segments(pitchf, ids_slice, seg)
             if self.checkpointing:
                 o = checkpoint(self.dec, z_slice, f0, g, None, source_noise,

@@ -1,8 +1,43 @@
-"""Small shared ops (counterpart of `rvc_tpu/ops/commons.py`)."""
+"""Small shared ops (counterpart of `rvc_tpu/ops/commons.py`), and the
+batch-shaped random draws of training and of the NSF source (`draw`,
+`batch_rows`)."""
 
 from __future__ import annotations
 
+import threading
+from contextlib import contextmanager
+from typing import Callable, Iterator, Optional, Sequence
+
 import torch
+
+_rows = threading.local()
+
+
+@contextmanager
+def batch_rows(start: int, total: int) -> Iterator[None]:
+    """Inside, in this thread, every `draw` is made for a batch of `total`
+    rows and cut to the caller's rows from `start` on: a shard of a batch
+    draws from a generator what the whole batch draws for those rows, so a
+    data-parallel rank, or one device of `BatchConverter`'s mesh, gets the
+    numbers a single device gets at the whole batch."""
+    prev = getattr(_rows, "value", None)
+    _rows.value = (start, total)
+    try:
+        yield
+    finally:
+        _rows.value = prev
+
+
+def draw(fn: Callable, shape: Sequence[int], generator: Optional[torch.Generator],
+         device) -> torch.Tensor:
+    """fn(shape) (`torch.randn` or `torch.rand`) from `generator` on
+    `device`; shape[0] is the batch, cut from the whole batch inside
+    `batch_rows`."""
+    rows = getattr(_rows, "value", None)
+    if rows is None:
+        return fn(tuple(shape), generator=generator, device=device)
+    start, total = rows
+    return fn((total, *shape[1:]), generator=generator, device=device)[start: start + shape[0]]
 
 
 def sequence_mask(lengths: torch.Tensor, max_length: int) -> torch.Tensor:
@@ -35,7 +70,7 @@ def rand_slice_segments(x: torch.Tensor, x_lengths: torch.Tensor, segment_size: 
     [0, len - segment_size] (0 for rows shorter than a segment), drawn from
     `generator` (on x's device). Returns (segments, ids_str)."""
     max_starts = torch.clamp(x_lengths.long() - segment_size, min=0)
-    u = torch.rand(x.shape[0], generator=generator, device=x.device)
+    u = draw(torch.rand, (x.shape[0],), generator, x.device)
     ids = (u * (max_starts + 1).float()).long()
     ids = torch.minimum(ids, max_starts)
     return slice_segments(x, ids, segment_size), ids

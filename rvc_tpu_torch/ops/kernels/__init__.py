@@ -10,7 +10,9 @@ Each wrapper `<name>` has a plain PyTorch version `<name>_reference` with
 the same signature, which it runs for CPU tensors.
 
 `LAUNCHES` counts each wrapper's kernel launches (and nothing else), so a
-run can show that the main path went through the kernels. `record_calls`
+run can show that the main path went through the kernels; `count_launch`
+adds one under a lock (`BatchConverter`'s mesh launches from one host
+thread per device). `record_calls`
 keeps a copy of every wrapper call made inside it, so the calls a run
 made can be replayed and timed one by one (detached copies: a recording
 holds no autograd graph).
@@ -27,6 +29,7 @@ kernel, so neither has the port.
 from __future__ import annotations
 
 import functools
+import threading
 from contextlib import contextmanager
 from typing import Callable, Iterator, List, Optional, Sequence
 
@@ -36,11 +39,17 @@ LAUNCHES = {"resblock_group": 0, "resblock_chain": 0, "rel_attention": 0,
             "log_mel": 0}
 
 _recording: Optional[List[tuple]] = None
+_count_lock = threading.Lock()
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def count_launch(name: str) -> None:
+    with _count_lock:
+        LAUNCHES[name] += 1
 
 
 def _copy(obj):

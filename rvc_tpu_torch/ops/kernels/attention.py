@@ -34,7 +34,7 @@ import torch
 
 from rvc_tpu_torch.ops.attention import relative_attention_xla
 from rvc_tpu_torch.ops.commons import sequence_mask
-from rvc_tpu_torch.ops.kernels import LAUNCHES, build, plain_vjp, recorded
+from rvc_tpu_torch.ops.kernels import build, count_launch, plain_vjp, recorded
 
 HEAD_DIMS = (32, 64, 96, 128)
 MAX_WINDOW = 15          # 2w + 1 <= 31
@@ -107,7 +107,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, emb_rel_k: torch.
                     lens.data_ptr(), out.data_ptr(), work.data_ptr(), B, H, T, D, w,
                     e_heads, splits, out_strides, stream)
     build.check(err, "rel_attention")
-    LAUNCHES["rel_attention"] += 1
+    count_launch("rel_attention")
     return out
 
 

@@ -21,7 +21,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from rvc_tpu_torch.ops.kernels import LAUNCHES, build, recorded
+from rvc_tpu_torch.ops.kernels import build, count_launch, recorded
 from rvc_tpu_torch.ops.stft import log_mel_spectrogram, mel_filterbank
 
 
@@ -136,5 +136,5 @@ def log_mel(audio: torch.Tensor, n_fft: int = 1024, hop: int = 160,
     err = _lib()[1](audio.data_ptr(), w.data_ptr(), fb_t.data_ptr(), ranges.data_ptr(),
                     mag.data_ptr(), out.data_ptr(), B, T, n_fft, hop, n_mels, clamp, stream)
     build.check(err, "log_mel")
-    LAUNCHES["log_mel"] += 1
+    count_launch("log_mel")
     return out

@@ -36,7 +36,7 @@ from typing import Sequence
 import torch
 
 from rvc_tpu_torch.ops import conv as conv_ops
-from rvc_tpu_torch.ops.kernels import LAUNCHES, build, plain_vjp, recorded
+from rvc_tpu_torch.ops.kernels import build, count_launch, plain_vjp, recorded
 
 CHANNELS = (32, 64, 128, 256)
 
@@ -133,7 +133,7 @@ def _run_chain(x, w1, b1, w2, b2, kernel_size, dilations, slope, out, alpha,
                  w2[s].data_ptr(), b2[s].data_ptr(), B, T, C, K, d, slope,
                  alpha if last else 1.0, beta if last else 0.0, stream)
         build.check(err, counter)
-        LAUNCHES[counter] += 1
+        count_launch(counter)
         cur = dst
 
 

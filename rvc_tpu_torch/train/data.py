@@ -1,5 +1,5 @@
 """Training data: dataset rows, bucketed batching, pad-collate (counterpart
-of `rvc_tpu/train/data.py`, on one card).
+of `rvc_tpu/train/data.py`).
 
 Rows of (features, f0, coarse f0, spectrogram, wave, sid); the phone
 features repeated 2x to the spectrogram's frame rate; length buckets at
@@ -8,6 +8,10 @@ small closed set of shapes, as the reference's); a shuffle seeded by
 seed + epoch. Batches collate to host tensors (pinned where there is a
 CUDA device, for an asynchronous copy); the trainer moves them to the
 device.
+
+With num_hosts > 1 (one rank a card), every global step groups num_hosts
+full batches of one bucket and rank host_id takes member host_id, so every
+rank steps as often as the others, at the same padded shape.
 """
 
 from __future__ import annotations
@@ -65,10 +69,13 @@ class DataLoader:
     """Bucketed, epoch-shuffled batches, each padded to its bucket's boundary."""
 
     def __init__(self, dataset: RVCDataset, batch_size: int, seed: int = 1234,
-                 drop_last: bool = True, shuffle: bool = True):
+                 num_hosts: int = 1, host_id: int = 0, drop_last: bool = True,
+                 shuffle: bool = True):
         self.dataset = dataset
         self.batch_size = batch_size
         self.seed = seed
+        self.num_hosts = num_hosts
+        self.host_id = host_id
         self.drop_last = drop_last
         self.shuffle = shuffle  # False = deterministic batch order
         self.epoch = 0
@@ -77,7 +84,7 @@ class DataLoader:
         self.epoch = epoch
 
     def __len__(self) -> int:
-        return max(1, len(self.dataset) // self.batch_size)
+        return max(1, len(self.dataset) // (self.batch_size * self.num_hosts))
 
     def _batches_indices(self) -> List[List[int]]:
         rng = random.Random(self.seed + self.epoch)
@@ -86,6 +93,20 @@ class DataLoader:
             n = r.get("n_frames")
             buckets.setdefault(_bucket_of(BUCKET_BOUNDARIES[-1] if n is None else n),
                                []).append(i)
+        if self.num_hosts > 1:
+            # a leftover batch on one rank would hang the others in the
+            # step's collectives: only whole steps of num_hosts full batches
+            steps = []
+            for _, idxs in sorted(buckets.items()):
+                if self.shuffle:
+                    rng.shuffle(idxs)
+                full = [idxs[j: j + self.batch_size]
+                        for j in range(0, len(idxs) - self.batch_size + 1, self.batch_size)]
+                for j in range(0, len(full) - self.num_hosts + 1, self.num_hosts):
+                    steps.append(full[j: j + self.num_hosts])
+            if self.shuffle:
+                rng.shuffle(steps)
+            return [step[self.host_id] for step in steps]
         batches = []
         for _, idxs in sorted(buckets.items()):
             if self.shuffle:
@@ -100,11 +121,24 @@ class DataLoader:
 
     def __iter__(self) -> Iterator[Batch]:
         for group in self._batches_indices():
-            samples = [s for s in (self.dataset[i] for i in group) if s is not None]
-            if not samples:
-                continue
+            samples = [self.dataset[i] for i in group]
+            if self.num_hosts > 1:
+                # B and T must not depend on which rows load on this rank: a
+                # row that fails is replaced by a copy of one that loads, and T
+                # is the bucket of the rows' metadata
+                good = [s for s in samples if s is not None]
+                if not good:
+                    raise RuntimeError(f"all {len(group)} rows of a batch failed to load on "
+                                       f"rank {self.host_id}; clean the dataset (rows {group})")
+                samples = [s if s is not None else dict(good[0]) for s in samples]
+                n_frames = [self.dataset.rows[i].get("n_frames") for i in group]
+                T = _bucket_of(max(BUCKET_BOUNDARIES[-1] if n is None else n for n in n_frames))
+            else:
+                samples = [s for s in samples if s is not None]
+                if not samples:
+                    continue
+                T = _bucket_of(max(s["length"] for s in samples))
             B = len(samples)
-            T = _bucket_of(max(s["length"] for s in samples))
             hop = self.dataset.hop_length
             phone = np.zeros((B, T, samples[0]["phone"].shape[1]), np.float32)
             pitch = np.zeros((B, T), np.int64)

@@ -6,7 +6,7 @@ log-variances, mel L1 and RefineGAN's multi-scale log10-mel L1.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
@@ -41,13 +41,18 @@ def feature_loss(fmap_real, fmap_gen) -> torch.Tensor:
 
 
 def kl_loss(z_p: torch.Tensor, logs_q: torch.Tensor, m_p: torch.Tensor,
-            logs_p: torch.Tensor, z_mask: torch.Tensor, clamp: float = 10.0) -> torch.Tensor:
+            logs_p: torch.Tensor, z_mask: torch.Tensor, clamp: float = 10.0,
+            denominator: Optional[torch.Tensor] = None) -> torch.Tensor:
     """KL(q || p) per masked element, normalised by the mask's sum (no
-    channel factor), with the log-variances clamped to +-clamp."""
+    channel factor), with the log-variances clamped to +-clamp.
+    `denominator` replaces the mask's sum (a rank's share of the global
+    batch's, in data-parallel training)."""
     logs_p = torch.clamp(logs_p, -clamp, clamp)
     logs_q = torch.clamp(logs_q, -clamp, clamp)
     kl = logs_p - logs_q - 0.5 + 0.5 * (z_p - m_p) ** 2 * torch.exp(-2.0 * logs_p)
-    return torch.sum(kl * z_mask) / torch.clamp(torch.sum(z_mask), min=1.0)
+    if denominator is None:
+        denominator = torch.clamp(torch.sum(z_mask), min=1.0)
+    return torch.sum(kl * z_mask) / denominator
 
 
 def mel_l1_loss(mel_real: torch.Tensor, mel_gen: torch.Tensor) -> torch.Tensor:

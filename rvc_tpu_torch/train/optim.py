@@ -16,6 +16,10 @@ keeps its own.
 The step count is a device tensor and `step(grads, gate)` takes an
 optional boolean device tensor: where it is False, the whole update is
 skipped (parameters, moments, count), without a read-back to the host.
+
+`parallel.train.ShardedAdamW` keeps the moments of a slice of each large
+parameter (ZeRO-1): `_local` cuts what a rank updates, `_share` gathers
+the updated slices; here both are the whole.
 """
 
 from __future__ import annotations
@@ -51,10 +55,11 @@ class AdamW:
         self.params = list(params)
         self.lr, self.steps_per_epoch, self.decay_rate = lr, steps_per_epoch, decay_rate
         self.b1, self.b2, self.eps = b1, b2, eps
-        self.mu = [torch.zeros_like(p, dtype=mu_dtype or p.dtype) for p in self.params]
+        local = [self._local(i, p) for i, p in enumerate(self.params)]
+        self.mu = [torch.zeros_like(p, dtype=mu_dtype or p.dtype) for p in local]
         # b1 in the stored moment's type, as XLA folds the constant
         self.b1_mu = torch.tensor(b1, dtype=mu_dtype or torch.float32).item()
-        self.nu = [torch.zeros_like(p) for p in self.params]
+        self.nu = [torch.zeros_like(p) for p in local]
         device = self.params[0].device if self.params else None
         self.count = torch.zeros((), dtype=torch.int32, device=device)
 
@@ -64,6 +69,14 @@ class AdamW:
         rate = torch.tensor(self.decay_rate, dtype=torch.float32, device=count.device)
         return torch.where(count <= 0, torch.tensor(self.lr, device=count.device),
                            self.lr * torch.pow(rate, p))
+
+    def _local(self, i: int, t: torch.Tensor) -> torch.Tensor:
+        """The part of parameter i's tensor t (the parameter, its gradient)
+        this optimizer updates."""
+        return t
+
+    def _share(self) -> None:
+        """Make every updated part whole on every rank."""
 
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor], gate: Optional[torch.Tensor] = None) -> None:
@@ -75,7 +88,8 @@ class AdamW:
         lr = self.learning_rate(self.count)
         bc1 = 1.0 - torch.pow(torch.tensor(self.b1, device=count.device), count.float())
         bc2 = 1.0 - torch.pow(torch.tensor(self.b2, device=count.device), count.float())
-        for p, g, mu, nu in zip(self.params, grads, self.mu, self.nu):
+        for i, (p, g, mu, nu) in enumerate(zip(self.params, grads, self.mu, self.nu)):
+            p, g = self._local(i, p), self._local(i, g)
             g = torch.where(keep, g, g / g_norm * MAX_NORM)
             m = (1.0 - self.b1) * g + self.b1_mu * mu.float()
             v = (1.0 - self.b2) * g ** 2 + self.b2 * nu
@@ -90,6 +104,7 @@ class AdamW:
                 mu.copy_(torch.where(gate, m.to(mu.dtype), mu))
                 nu.copy_(torch.where(gate, v, nu))
         self.count = count if gate is None else torch.where(gate, count, self.count)
+        self._share()
 
     def state_dict(self) -> Dict[str, object]:
         return {"mu": [t.detach().cpu() for t in self.mu],

@@ -14,7 +14,7 @@ as one jitted program; here it runs eagerly, with K1-K3 under autograd
 
 from __future__ import annotations
 
-from typing import Dict, List, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -44,15 +44,17 @@ class Batch(NamedTuple):
 
 
 def make_optimizers(cfg: RVCConfig, net_g: nn.Module, net_d: nn.Module,
-                    steps_per_epoch: int = 100) -> Tuple[AdamW, AdamW]:
+                    steps_per_epoch: int = 100,
+                    optimizer: Callable[..., AdamW] = AdamW) -> Tuple[AdamW, AdamW]:
     """(G's AdamW, D's AdamW) as the reference's `make_optimizers`: D's
-    learning rate times d_lr_scale; bf16 first moments with use_bf16."""
+    learning rate times d_lr_scale; bf16 first moments with use_bf16.
+    `optimizer` builds each (`parallel.train.ShardedAdamW` for ZeRO-1)."""
     t = cfg.train
     mu_dtype = torch.bfloat16 if t.use_bf16 else None
     kw = dict(steps_per_epoch=steps_per_epoch, decay_rate=t.lr_decay, b1=t.betas[0],
               b2=t.betas[1], eps=t.eps, mu_dtype=mu_dtype)
-    return (AdamW(list(net_g.parameters()), t.learning_rate, **kw),
-            AdamW(list(net_d.parameters()), t.learning_rate * t.d_lr_scale, **kw))
+    return (optimizer(list(net_g.parameters()), t.learning_rate, **kw),
+            optimizer(list(net_d.parameters()), t.learning_rate * t.d_lr_scale, **kw))
 
 
 class TrainStep:
@@ -95,8 +97,8 @@ class TrainStep:
         else:
             loss_mel = L.mel_l1_loss(self._mel(wave_real[:, :, 0]),
                                      self._mel(y_hat[:, :, 0])) * cfg.train.c_mel
-        loss_kl = L.kl_loss(out.z_p, out.logs_q, out.m_p, out.logs_p,
-                            out.y_mask) * cfg.train.c_kl
+        loss_kl = L.kl_loss(out.z_p, out.logs_q, out.m_p, out.logs_p, out.y_mask,
+                            denominator=self.kl_denominator(out.y_mask)) * cfg.train.c_kl
         zero = torch.zeros((), device=y_hat.device)
         loss_adv = loss_fm = zero
         if self.adversarial:
@@ -107,6 +109,19 @@ class TrainStep:
         return total, dict(loss_mel=loss_mel, loss_kl=loss_kl, loss_adv=loss_adv,
                            loss_fm=loss_fm), y_hat, wave_real
 
+    # the data-parallel step (`parallel/train.py`) makes these three global
+    def kl_denominator(self, y_mask: torch.Tensor) -> Optional[torch.Tensor]:
+        """The KL's normaliser; None: this batch's mask sum."""
+        return None
+
+    def reduce_grads(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
+        """The gradients of the whole batch from this step's own."""
+        return grads
+
+    def reduce_loss(self, loss: torch.Tensor) -> torch.Tensor:
+        """The whole batch's value of a detached loss."""
+        return loss
+
     def d_loss(self, wave_real: torch.Tensor, y_hat: torch.Tensor) -> torch.Tensor:
         y_d_rs, y_d_gs, _, _ = self.net_d(wave_real, y_hat)
         return L.discriminator_loss(y_d_rs, y_d_gs)
@@ -116,8 +131,8 @@ class TrainStep:
         freeze_encoder (zeros for a parameter the loss does not reach)."""
         params = self.g_opt.params
         grads = torch.autograd.grad(total, params, allow_unused=True)
-        grads = sanitize_grads([torch.zeros_like(p) if g is None else g
-                                for g, p in zip(grads, params)])
+        grads = sanitize_grads(self.reduce_grads([torch.zeros_like(p) if g is None else g
+                                                  for g, p in zip(grads, params)]))
         if self.enc_p is not None:
             grads = [torch.zeros_like(g) if frozen else g
                      for g, frozen in zip(grads, self.enc_p)]
@@ -127,10 +142,11 @@ class TrainStep:
         """One D update on detached segments; returns its loss (before it)."""
         params = self.d_opt.params
         loss = self.d_loss(wave_real, y_hat)
-        grads = sanitize_grads(torch.autograd.grad(loss, params))
+        grads = sanitize_grads(self.reduce_grads(list(torch.autograd.grad(loss, params))))
+        loss = self.reduce_loss(loss.detach())
         threshold = self.cfg.train.d_loss_threshold
-        self.d_opt.step(grads, gate=loss.detach() >= threshold if threshold > 0 else None)
-        return loss.detach()
+        self.d_opt.step(grads, gate=loss >= threshold if threshold > 0 else None)
+        return loss
 
     def __call__(self, batch: Batch, generator: Optional[torch.Generator] = None,
                  **draws) -> Dict[str, torch.Tensor]:

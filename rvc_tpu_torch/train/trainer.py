@@ -1,4 +1,4 @@
-"""The trainer (counterpart of `rvc_tpu/train/trainer.py`, on one card).
+"""The trainer (counterpart of `rvc_tpu/train/trainer.py`).
 
 The epoch loop over the bucketed loader, warmup (non-adversarial) epochs,
 pretrained G/D loading with a per-module coverage check, checkpoint save
@@ -11,7 +11,17 @@ parameter paths (`{name}_G.safetensors`, `{name}_D.safetensors`; enc_q
 included), so either package resumes the other's, with
 `{name}_state.json` (epoch, step, best loss, config). The optimizer state
 is the port's own file, `{name}_opt.pt` (`torch.save`; `rvc_tpu` keeps
-its own in orbax).
+its own in orbax), in one format for any number of ranks: whole moments.
+
+With a mesh (the process group's ranks, `parallel.mesh.make_mesh()`), each
+rank trains a replica on its rows of every global step
+(`parallel.train.DataParallelTrainStep`) with ZeRO-1 moments
+(`ShardedAdamW`). Replicas are broadcast from rank 0 before the first step
+and after a load or resume. Rank 0 alone writes the log, the tracker, the
+checkpoints, the eval audio and the export; every rank enters each save
+(the moments are gathered). The epoch's metrics are the global batch's,
+so "best" saves and the overtraining stop agree on every rank, and the
+SIGTERM stop is all-reduced.
 """
 
 from __future__ import annotations
@@ -23,14 +33,19 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from rvc_tpu_torch.configs import RVCConfig, config_to_dict
 from rvc_tpu_torch.models.discriminators import build_discriminator
 from rvc_tpu_torch.models.synthesizer import build_synthesizer
-from rvc_tpu_torch.monitoring.tracker import RollingMean, create_tracker
+from rvc_tpu_torch.monitoring.tracker import NullTracker, RollingMean, create_tracker
 from rvc_tpu_torch.ops.stft import mel_spectrogram
+from rvc_tpu_torch.parallel.mesh import Mesh
+from rvc_tpu_torch.parallel.train import (DataParallelTrainStep, ShardedAdamW,
+                                          broadcast_modules)
 from rvc_tpu_torch.train.data import DataLoader
 from rvc_tpu_torch.train.overtraining import OvertrainingDetector
+from rvc_tpu_torch.train.optim import AdamW
 from rvc_tpu_torch.train.train_step import Batch, TrainStep, make_optimizers
 from rvc_tpu_torch.utils import weights as W
 from rvc_tpu_torch.utils.audio import save_wav
@@ -57,7 +72,9 @@ def _merge(dst: dict, src: dict, what: str, path: str) -> None:
 
 class RVCTrainer:
     """device: None trains on the card (and raises when there is none);
-    "cpu" runs the kernels' plain versions on the host."""
+    "cpu" runs the kernels' plain versions on the host. mesh: the process
+    group's ranks (one a card), each calling with its own loader
+    (`DataLoader(num_hosts, host_id)`) and device."""
 
     def __init__(self, cfg: RVCConfig, train_loader: DataLoader,
                  checkpoint_dir: str = "checkpoints",
@@ -66,9 +83,16 @@ class RVCTrainer:
                  freeze_encoder: bool = False, save_only_latest: bool = False,
                  save_every_weights: bool = False, cache_data_on_device: bool = False,
                  model_name: str = "model", tracker=None, use_aim: bool = False, *,
-                 device=None):
+                 mesh: Optional[Mesh] = None, device=None):
         self.device = resolve_device(device)
         use_fp32_numerics()
+        if mesh is not None and not (dist.is_initialized()
+                                     and mesh.size == dist.get_world_size()):
+            raise ValueError(f"a mesh of {mesh.size} ranks needs a process group of as many "
+                             f"(`parallel.distributed.initialize`)")
+        self.mesh = mesh
+        self._is_main = mesh is None or dist.get_rank() == 0
+        self._synced = mesh is None
         self.cfg = cfg
         self.train_loader = train_loader
         self.checkpoint_dir = checkpoint_dir
@@ -80,8 +104,9 @@ class RVCTrainer:
             net_g = build_synthesizer(cfg, training=True)
             net_d = build_discriminator(cfg)
         self.net_g, self.net_d = net_g.to(self.device), net_d.to(self.device)
-        self.g_opt, self.d_opt = make_optimizers(cfg, self.net_g, self.net_d,
-                                                 self._steps_per_epoch)
+        self.g_opt, self.d_opt = make_optimizers(
+            cfg, self.net_g, self.net_d, self._steps_per_epoch,
+            optimizer=AdamW if mesh is None else ShardedAdamW)
         # every draw of a step (the posterior's eps, the segment starts, the
         # decoder's noise) comes from this generator, on the device
         self.generator = torch.Generator(self.device).manual_seed(seed + 1)
@@ -100,15 +125,22 @@ class RVCTrainer:
         self.cache_data_on_device = cache_data_on_device
         self.model_name = model_name
         self._device_batches = None
-        self.tracker = tracker or create_tracker(checkpoint_dir, model_name, use_aim=use_aim)
+        self.tracker = tracker or (create_tracker(checkpoint_dir, model_name, use_aim=use_aim)
+                                   if self._is_main else NullTracker())
         self.tracker.log_params(config_to_dict(cfg))
         self._rolling = RollingMean(50)
         self._preempt = False
 
     # ------------------------------------------------------------------
     def step_fn(self, adversarial: bool) -> TrainStep:
+        """The step; with a mesh the replicas are made equal first where a
+        load may have parted them."""
+        if not self._synced:
+            broadcast_modules(self.net_g, self.net_d)
+            self._synced = True
         if adversarial not in self._steps:
-            self._steps[adversarial] = TrainStep(
+            cls = TrainStep if self.mesh is None else DataParallelTrainStep
+            self._steps[adversarial] = cls(
                 self.cfg, self.net_g, self.net_d, self.g_opt, self.d_opt,
                 adversarial=adversarial, freeze_encoder=self.freeze_encoder)
         return self._steps[adversarial]
@@ -116,8 +148,8 @@ class RVCTrainer:
     @torch.inference_mode()
     def render_eval_audio(self, name: Optional[str] = None) -> Optional[str]:
         """The eval batch through the current generator (no noise) to a wav,
-        logged with its log-mel image to the tracker."""
-        if self.eval_batch is None:
+        logged with its log-mel image to the tracker (rank 0)."""
+        if self.eval_batch is None or not self._is_main:
             return None
         b = self.eval_batch.to(self.device)
         wave, _ = self.net_g.infer(b.phone, b.phone_lengths, b.pitch, b.pitchf, b.sid)
@@ -157,18 +189,23 @@ class RVCTrainer:
             state = self.net_d.state_dict()
             _merge(state, src, "discriminator", d_path)
             self.net_d.load_state_dict(state)
+        self._synced = self.mesh is None
 
     def save_checkpoint(self, name: Optional[str] = None, full_state: bool = True) -> str:
         """G and D as `.safetensors` in `rvc_tpu`'s paths, the state JSON,
-        and with full_state the optimizers' moments and counts."""
+        and with full_state the optimizers' moments and counts. With a mesh
+        every rank calls it (the moments are gathered); rank 0 writes."""
         name = name or f"epoch_{self.epoch:04d}"
         gp = os.path.join(self.checkpoint_dir, f"{name}_G.safetensors")
+        opt = ({"g_opt": self.g_opt.state_dict(), "d_opt": self.d_opt.state_dict()}
+               if full_state else None)
+        if not self._is_main:
+            return gp
         W.save_params(W.synthesizer_to_jax(self.net_g.state_dict()), gp)
         W.save_params(W.discriminator_to_jax(self.net_d.state_dict()),
                       os.path.join(self.checkpoint_dir, f"{name}_D.safetensors"))
-        if full_state:
-            torch.save({"g_opt": self.g_opt.state_dict(), "d_opt": self.d_opt.state_dict()},
-                       os.path.join(self.checkpoint_dir, f"{name}_opt.pt"))
+        if opt is not None:
+            torch.save(opt, os.path.join(self.checkpoint_dir, f"{name}_opt.pt"))
         meta = dict(epoch=self.epoch, step=self.step, best_loss=self.best_loss,
                     config=config_to_dict(self.cfg))
         with open(os.path.join(self.checkpoint_dir, f"{name}_state.json"), "w") as f:
@@ -177,7 +214,8 @@ class RVCTrainer:
 
     def resume(self, name: str) -> None:
         """Parameters (from either package), epoch, step and best loss, and
-        the port's optimizer state when the checkpoint has it."""
+        the port's optimizer state when the checkpoint has it (with a mesh,
+        each rank keeps its slices)."""
         root = os.path.join(self.checkpoint_dir, name)
         self.load_pretrained(root + "_G.safetensors", root + "_D.safetensors")
         if os.path.exists(root + "_state.json"):
@@ -194,7 +232,9 @@ class RVCTrainer:
     def export_inference_model(self, path: str) -> str:
         """The inference weights, enc_q stripped: a `.pth` path writes the
         upstream inference checkpoint (`export_pth`), any other the native
-        `.safetensors` with its `.json` config."""
+        `.safetensors` with its `.json` config. Rank 0 writes."""
+        if not self._is_main:
+            return path
         state = {k: v for k, v in self.net_g.state_dict().items() if not k.startswith("enc_q.")}
         if path.endswith(".pth"):
             return W.export_pth(state, self.cfg, path, pitch_guidance=self.cfg.model.use_f0,
@@ -229,7 +269,7 @@ class RVCTrainer:
             for k, v in host.items():
                 agg[k] = agg.get(k, 0.0) + v
             smoothed = self._rolling.update(host)
-            if n % LOG_EVERY_STEPS == 0:
+            if n % LOG_EVERY_STEPS == 0 and self._is_main:
                 self.tracker.log_metrics(smoothed, self.step)
         return {k: v / max(n, 1) for k, v in agg.items()} | {"batches": n}
 
@@ -248,6 +288,16 @@ class RVCTrainer:
             return signal.signal(signal.SIGTERM, handler)
         except ValueError:
             return None
+
+    def _preempt_requested(self) -> bool:
+        """The SIGTERM flag of any rank: the signal may reach one rank only,
+        and a stop on that rank alone would hang the others in the next
+        step's collectives."""
+        if self.mesh is None:
+            return self._preempt
+        flag = torch.tensor(int(self._preempt), device=self.device)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        return bool(flag)
 
     def train(self, epochs: int, save_every: int = 10,
               warmup_epochs: Optional[int] = None) -> dict:
@@ -274,11 +324,12 @@ class RVCTrainer:
             metrics |= {"epoch": self.epoch, "adversarial": adversarial,
                         "seconds": round(time.time() - t0, 2)}
             history.append(metrics)
-            with open(self._log_path, "a") as f:
-                f.write(json.dumps(metrics) + "\n")
-            self.tracker.log_metrics({k: v for k, v in metrics.items()
-                                      if isinstance(v, (int, float)) and np.isfinite(v)},
-                                     self.step, context={"subset": "epoch"})
+            if self._is_main:
+                with open(self._log_path, "a") as f:
+                    f.write(json.dumps(metrics) + "\n")
+                self.tracker.log_metrics({k: v for k, v in metrics.items()
+                                          if isinstance(v, (int, float)) and np.isfinite(v)},
+                                         self.step, context={"subset": "epoch"})
             g_total = metrics.get("loss_g_total", float("inf"))
             if g_total < self.best_loss:
                 self.best_loss = g_total
@@ -286,14 +337,16 @@ class RVCTrainer:
             if self.detector is not None and self.detector.update(self.epoch, g_total):
                 self.save_checkpoint()
                 break
-            if self._preempt:
+            if self._preempt_requested():
                 # the epoch counts as done, as on the regular save path:
                 # a resume continues with the next one
+                self._preempt = True
                 done = self.epoch
                 self.epoch += 1
                 self.save_checkpoint(f"preempt_epoch_{done:04d}")
-                print(f"preemption requested: checkpointed after epoch {done}, stopping "
-                      f"(resume with trainer.resume('preempt_epoch_{done:04d}'))")
+                if self._is_main:
+                    print(f"preemption requested: checkpointed after epoch {done}, stopping "
+                          f"(resume with trainer.resume('preempt_epoch_{done:04d}'))")
                 break
             self.epoch += 1
             if self.epoch % save_every == 0:

@@ -520,3 +520,64 @@ def test_full_width_train_step_matches_the_host(dev, monkeypatch):
         for k in modules:
             corr = float(torch.corrcoef(torch.stack([card[1][k], ref[1][k]]))[0, 1])
             assert corr > 0.99, (k, corr)
+
+
+def test_nccl_world_size_one_step_matches_the_single_card(dev, tmp_path):
+    """The data-parallel trainer at world size 1, joined by NCCL through
+    `parallel.distributed.initialize` (a localhost coordinator), against
+    the single-card trainer: two steps at the 48 kHz decoder's width, batch
+    2, the same seed (init and draws). An all-reduce over one rank and the
+    batch's own rows change nothing, but cuDNN's backward is not
+    deterministic from run to run (the gradient norm moved by rel 3.4e-5
+    between two runs on the card), so the bars are `chip_smoke.py`'s
+    `ddp_gloo` ones: step 1's losses within rel 1e-4, G and D after the
+    steps within rel_l2 1e-3 over each network, every metric finite."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from rvc_tpu_torch.configs import get_config
+    from rvc_tpu_torch.monitoring import NullTracker
+    from rvc_tpu_torch.parallel.distributed import initialize
+    from rvc_tpu_torch.parallel.mesh import make_mesh
+    from rvc_tpu_torch.parallel.train import free_port
+    from rvc_tpu_torch.train.data import DataLoader, RVCDataset
+    from rvc_tpu_torch.train.train_step import Batch
+    from rvc_tpu_torch.train.trainer import RVCTrainer
+
+    cfg = get_config(48000, model_spk_embed_dim=2, model_n_layers=1, train_batch_size=2)
+    rng = np.random.default_rng(1)
+    B, T, hop = 2, 60, cfg.data.hop_length
+    t = np.arange(T * hop) / 48000
+    batch = Batch(torch.from_numpy(rng.standard_normal((B, T, 768)).astype(np.float32)),
+                  torch.tensor([60, 50]), torch.from_numpy(rng.integers(1, 255, (B, T))),
+                  torch.full((B, T), 180.0), torch.from_numpy(
+                      np.abs(rng.standard_normal((B, T, 1025))).astype(np.float32)),
+                  torch.tensor([60, 50]),
+                  torch.from_numpy(np.stack([0.3 * np.sin(2 * np.pi * f * t)
+                                             for f in (150, 220)]).astype(np.float32)),
+                  torch.tensor([0, 1])).to(dev)
+
+    def run(mesh):
+        tr = RVCTrainer(cfg, DataLoader(RVCDataset([], hop), 1), checkpoint_dir=str(tmp_path),
+                        seed=0, tracker=NullTracker(), mesh=mesh, device=dev)
+        step = tr.step_fn(True)
+        metrics = [{k: float(v) for k, v in step(batch, tr.generator).items()}
+                   for _ in range(2)]
+        return metrics, tr
+
+    single, ref = run(None)
+    info = initialize(f"localhost:{free_port()}", 1, 0)
+    try:
+        assert info["backend"] == "nccl" and info["process_count"] == 1
+        got, tr = run(make_mesh())
+        assert type(tr.step_fn(True)).__name__ == "DataParallelTrainStep"
+    finally:
+        dist.destroy_process_group()
+    assert all(np.isfinite(v) for m in got for v in m.values())
+    for k, v in single[0].items():
+        if k.startswith("loss"):
+            assert got[0][k] == pytest.approx(v, rel=1e-4), k
+    for name in ("net_g", "net_d"):
+        a, b = getattr(tr, name).state_dict(), getattr(ref, name).state_dict()
+        a, b = (torch.cat([x[k].double().flatten() for k in b]) for x in (a, b))
+        assert float((a - b).norm() / b.norm()) < 1e-3, name
