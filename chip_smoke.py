@@ -154,6 +154,23 @@ Phases, one JSON line each (a `kernel` line per kernel call):
             one epoch: rank 0 of 1 joined by NCCL at a localhost coordinator
             (wall, steps/s, launches); one rank a card started by `train`
             itself where there are two cards or more, else "skipped"
+  tp_gloo   (after ddp_gloo) two tensor-parallel ranks on mesh (1, 2)
+            spawned on the card (gloo), at ddp_gloo's full width and batch
+            and the default min_size, 3 steps from the single card's init and
+            draws: step-1 losses and the gathered G / D after the steps
+            against ddp_gloo's single-card run at its bars, each rank's param
+            and optimizer bytes against the rules (`rule_bytes`) and the
+            single card, launches per rank (K1 21 + K1_tp 6, K2_tp 9, K3 6 a
+            step), the model axis's all-reduces and all-gathers a step (count,
+            bytes), step ms; then every `resblock_chain_tp` /
+            `resblock_group_tp` call of one more step, replayed on both ranks
+            together: against its plain partial version (float32, at K1/K2's
+            bars) and its bf16 emulation in float64, ms of the call (its gloo
+            all-reduces included) and of the plain version, the kernels'
+            device ms, the bound of its kernels
+  tp_nccl   (after ddp_nccl) `train --mesh_model 2` through its bootstrap,
+            one rank a card over NCCL, one epoch, where the machine has an
+            even count of two cards or more; else "skipped" and why
   tools     model_information, convert, model_blender (the model with its
             own conversion at 0.5 is the conversion, bit for bit) and
             audio_analyzer on the train phase's `.pth` export
@@ -163,7 +180,9 @@ launches of each path's run beside the main path's, `staged_crepe`,
 `realtime` per block and `realtime_pool` per step at N = 16, `extract`
 over the train phase's extraction and `train_step` per step;
 `longform_mesh` over its run, `ddp_gloo_rank0` / `ddp_gloo_rank1` over
-their 3 steps and `ddp_nccl` over its epoch),
+their 3 steps, `tp_gloo_rank0` / `tp_gloo_rank1` over theirs and
+`ddp_nccl` over its epoch; the `_tp` variants' lines from `tp_gloo`, their
+calls on rank 0 in one step),
 the card line, and
 last {"ok": true, "device": {...}}. Any failed check raises: the exit code
 is non-zero and the last line is not printed. Without a CUDA device, or
@@ -342,21 +361,31 @@ def compare_exact(got, plain32, exact, atol: float, rtol: float, what: str) -> d
     return out
 
 
-def check_emulation(got, plain, args, kwargs, x, bar: float, what: str) -> dict:
+def emulation(got, plain, args, kwargs, x) -> dict:
     """K1/K2 against the plain version's bf16 emulation run in float64 (exact
     sums), on the output and on its update (output - x), which the residual
-    cannot dilute: rel_l2 <= max(bar, 2 x the float32 emulation's)."""
+    cannot dilute, beside the same emulation run in float32 by cuDNN."""
     import torch
 
     f64 = torch.float64
     exact = plain(*cast(args, f64), **cast(kwargs, f64), bf16_operands=True)
     emu = plain(*args, **kwargs, bf16_operands=True).double()
     got, x = got.double(), x.double()
-    out = {"emu_rel_l2": rel_l2(got, exact), "emu_update_rel_l2": rel_l2(got - x, exact - x),
-           "cudnn_emu_rel_l2": rel_l2(emu, exact),
-           "cudnn_emu_update_rel_l2": rel_l2(emu - x, exact - x)}
-    if not (out["emu_rel_l2"] <= max(bar, 2 * out["cudnn_emu_rel_l2"]) and
-            out["emu_update_rel_l2"] <= max(bar, 2 * out["cudnn_emu_update_rel_l2"])):
+    return {"emu_rel_l2": rel_l2(got, exact), "emu_update_rel_l2": rel_l2(got - x, exact - x),
+            "cudnn_emu_rel_l2": rel_l2(emu, exact),
+            "cudnn_emu_update_rel_l2": rel_l2(emu - x, exact - x)}
+
+
+def emulation_holds(out: dict, bar: float) -> bool:
+    """rel_l2 <= max(bar, 2 x the float32 emulation's), output and update."""
+    return (out["emu_rel_l2"] <= max(bar, 2 * out["cudnn_emu_rel_l2"]) and
+            out["emu_update_rel_l2"] <= max(bar, 2 * out["cudnn_emu_update_rel_l2"]))
+
+
+def check_emulation(got, plain, args, kwargs, x, bar: float, what: str) -> dict:
+    """`emulation`, raising where it misses `emulation_holds`."""
+    out = emulation(got, plain, args, kwargs, x)
+    if not emulation_holds(out, bar):
         raise AssertionError(f"{what}: kernel off its bf16 emulation ({out}, "
                              f"bar max({bar}, 2 x cudnn))")
     return out
@@ -764,7 +793,7 @@ def phase_retrieval(rvc, work: str) -> tuple:
     load_s = time.perf_counter() - t0
     clip = test_clip(CLIP_S, SEED)
     out, wall_ms, launches = timed_conversion(rvc_r, clip, index_rate=INDEX_RATE)
-    missing = [k for k, n in launches.items() if n <= 0]
+    missing = [k for k in KERNELS if launches[k] <= 0]
     if missing:
         raise AssertionError(f"the retrieval path never launched {missing}")
     plain = rvc_r.infer(clip, index_rate=0.0)
@@ -841,7 +870,7 @@ def phase_f0less(index_path: str, work: str) -> dict:
         raise AssertionError("the f0-less .pth loaded as another model")
     clip = test_clip(CLIP_S, SEED)
     _, wall_ms, launches = timed_conversion(rvc, clip, index_rate=INDEX_RATE)
-    wrong = {k: n for k, n in launches.items() if (n > 0) != (k != "log_mel")}
+    wrong = {k: launches[k] for k in KERNELS if (launches[k] > 0) != (k != "log_mel")}
     if wrong:
         raise AssertionError(f"the f0-less path launched {launches}: K1-K3 > 0, K4 = 0 expected")
     with record_calls() as calls:
@@ -987,7 +1016,8 @@ def phase_pitch(rvc, work: str) -> dict:
             kwargs = dict(input_f0=input_f0)
         out, wall_ms, launches = timed_conversion(rvc, clip, **kwargs)
         rmvpe_runs = "rmvpe" in kwargs.get("f0_method", "")
-        wrong = {k: n for k, n in launches.items() if (n > 0) != (k != "log_mel" or rmvpe_runs)}
+        wrong = {k: launches[k] for k in KERNELS
+                 if (launches[k] > 0) != (k != "log_mel" or rmvpe_runs)}
         if wrong:
             raise AssertionError(f"staged {name} launched {launches}: K1-K3 > 0 and K4 "
                                  f"{'> 0' if rmvpe_runs else '= 0'} expected")
@@ -1133,7 +1163,7 @@ def phase_postfx(rvc, work: str) -> dict:
     clip = gapped_clip()
     want = int(len(clip) * sr / 16000) + 1           # merge_audio's length
     out, wall_ms, launches = timed_conversion(rvc, clip, samples=want, **POSTFX, **FX_ALL)
-    missing = [k for k, n in launches.items() if n <= 0]
+    missing = [k for k in KERNELS if launches[k] <= 0]
     if missing:
         raise AssertionError(f"the postfx path never launched {missing}")
 
@@ -1180,7 +1210,8 @@ def phase_postfx(rvc, work: str) -> dict:
 
 VOCODERS = {"mrf": "MRF HiFi-GAN", "refinegan": "RefineGAN"}
 # plain torch decoders: K1/K2 are not reached, as in the reference
-VOCODER_LAUNCHES = {"resblock_group": 0, "resblock_chain": 0, "rel_attention": 6, "log_mel": 1}
+VOCODER_LAUNCHES = {"resblock_group": 0, "resblock_chain": 0, "rel_attention": 6, "log_mel": 1,
+                    "resblock_group_tp": 0, "resblock_chain_tp": 0}
 
 
 def decoder_inputs(rvc, clip) -> tuple:
@@ -1412,7 +1443,8 @@ def phase_vocoders(work: str) -> dict:
 LONG_UTTS, LONG_S = 64, 60.0          # scripts/bench_longform.py's shape
 CHUNK_S, PAD_S, LONG_BATCH = 10.0, 1.0, 8
 AB_UTTS, AB_BATCHES = 16, (1, 8, 16)
-LONG_LAUNCHES = {"resblock_group": 27, "resblock_chain": 9, "rel_attention": 6, "log_mel": 1}
+LONG_LAUNCHES = {"resblock_group": 27, "resblock_chain": 9, "rel_attention": 6, "log_mel": 1,
+                 "resblock_group_tp": 0, "resblock_chain_tp": 0}
 
 
 def synth_utterances(n: int, seconds: float, sr: int = 16000):
@@ -1554,7 +1586,8 @@ RT_BUDGET_MS = 512.0                  # one block of 192 x 128 samples at 48 kHz
 RT_GATE_DB = -90                      # the reference's default of 0 dB gates RMS < 1
 POOL_NS, POOL_STEPS = (1, 4, 16), 8
 TCP_BLOCKS = 10
-RT_LAUNCHES = {"resblock_group": 27, "resblock_chain": 9, "rel_attention": 6, "log_mel": 1}
+RT_LAUNCHES = {"resblock_group": 27, "resblock_chain": 9, "rel_attention": 6, "log_mel": 1,
+               "resblock_group_tp": 0, "resblock_chain_tp": 0}
 
 
 def rt_clip48(n_blocks: int, block: int, seed: int):
@@ -1903,7 +1936,8 @@ TRAIN_WARM, TRAIN_TIMED = 3, 20
 TRAIN_DESCENT_STEPS = 30                                  # warmup mode, one fixed batch
 TRAIN_VOCODER_STEPS = 2
 TRAIN_PARITY_B = 2
-TRAIN_LAUNCHES = {"resblock_group": 27, "resblock_chain": 9, "rel_attention": 6, "log_mel": 0}
+TRAIN_LAUNCHES = {"resblock_group": 27, "resblock_chain": 9, "rel_attention": 6, "log_mel": 0,
+                  "resblock_group_tp": 0, "resblock_chain_tp": 0}
 TRAIN_GRAD_BAR = 1e-5          # each Function's gradients against the plain autograd's
 TRAIN_DEVICE = "cuda"          # a CPU rehearsal sets "cpu" and shrinks TRAIN_CFG
 TRAIN_CFG = {}                 # get_config(48000, ...) overrides; none: full width
@@ -2372,7 +2406,8 @@ def phase_ddp_gloo(work: str) -> dict:
     gloo, both on the first card) at full width, DDP_STEPS steps on a global
     batch of DDP_BATCH, against the single-card trainer's step on the same
     batch and draws (one generator seeded alike). Returns each rank's
-    launches over its steps."""
+    launches over its steps and the single card's run (metrics, G, D,
+    bytes, step ms), which `tp_gloo` holds its ranks against."""
     import numpy as np
     import torch
 
@@ -2442,7 +2477,259 @@ def phase_ddp_gloo(work: str) -> dict:
                              f"params {params}, identical {identical}, launches "
                              f"{[r['launches'] for r in ranks]} (want {want})")
     del trainer, step
-    return {f"ddp_gloo_rank{i}": r["launches"] for i, r in enumerate(ranks)}
+    single = {"metrics": ref, "g": g_ref, "d": d_ref, "bytes": single_bytes, "step_ms": ms}
+    return {f"ddp_gloo_rank{i}": r["launches"] for i, r in enumerate(ranks)}, single
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism
+# ---------------------------------------------------------------------------
+
+TP_RANKS, TP_STEPS = 2, 3          # mesh (1, 2): one model group, both ranks on the card
+# a rank's launches a step at full width, n_model 2: the C = 256 stage's chains
+# and the C = 128 stage's k = 7 / 11 on the partial-sum launch, K1 elsewhere
+TP_LAUNCHES = {"resblock_group": 21, "resblock_chain": 0, "rel_attention": 6, "log_mel": 0,
+               "resblock_group_tp": 6, "resblock_chain_tp": 9}
+TP_KERNELS = {
+    "resblock_group_tp": dict(
+        name="K1 resblock_group_tp", entry="rvc_resblock_step_partial",
+        source="rvc_tpu_torch/csrc/resblock.cu", plain="resblock_group_partial_reference",
+        replaces="rvc_tpu/ops/pallas/resblock.py:287 fused_resblock_group (partial-sum launch "
+                 "on a tensor-parallel rank)", peak=PEAK_BF16, **BF16_BAR),
+    "resblock_chain_tp": dict(
+        name="K2 resblock_chain_tp", entry="rvc_resblock_step_partial",
+        source="rvc_tpu_torch/csrc/resblock.cu", plain="resblock_chain_partial_reference",
+        replaces="rvc_tpu/ops/pallas/resblock.py:141 fused_resblock (partial-sum launch on a "
+                 "tensor-parallel rank)", peak=PEAK_BF16, **BF16_BAR),
+}
+
+
+def tp_work(name: str, a: dict) -> tuple:
+    """(FLOP, bytes) of one `_tp` call's kernels on this rank: each chain's
+    two convs a step over its C_M mid channels (C for a whole chain of a
+    K1 stage); each input read once, the output written once (the
+    all-reduces' bytes not counted)."""
+    B, T, C = a["x"].shape
+    if name == "resblock_chain_tp":
+        weights, kernel_sizes, dilations = (a["w1"], a["b1"], a["w2"], a["b2"]), \
+            (a["kernel_size"],), (a["dilations"],)
+    else:
+        weights, kernel_sizes, dilations = a["weights"], a["kernel_sizes"], a["dilations"]
+    flop = sum(2 * B * T * C * weights[4 * i].shape[-1] * 2 * len(d) * k
+               for i, (k, d) in enumerate(zip(kernel_sizes, dilations)))
+    nbytes = 4 * (a["x"].numel() + sum(w.numel() for w in weights) + B * T * C)
+    return flop, nbytes
+
+
+def tp_call(fn, args, kwargs) -> dict:
+    """One recorded `_tp` call on this rank, replayed in step with the other
+    ranks (each call runs the model group's all-reduces): the kernel
+    against its plain partial version in float32 and against its bf16
+    emulation in float64, the ms of both (CUDA events, one call with its
+    all-reduces), the kernel's device ms, the bound of its kernels. No hold
+    here: the parent holds every rank's numbers (a rank that raised would
+    leave the other waiting in a collective)."""
+    import torch
+
+    from rvc_tpu_torch.ops.kernels import resblock as KR
+
+    name = fn.__name__
+    spec = TP_KERNELS[name]
+    plain = getattr(KR, spec["plain"])
+    bound_args = inspect.signature(fn).bind(*args, **kwargs)
+    a = bound_args.arguments
+    got, ref = fn(*args, **kwargs), plain(*args, **kwargs)
+    diff = (got - ref).abs()
+    out = {"name": name, "inputs": {"x": list(a["x"].shape), "c_m": sorted(
+        {int(w.shape[-1]) for w in (a["weights"][::4] if "weights" in a else (a["w1"],))})},
+        "max_abs": float(diff.max()), "rel_l2": rel_l2(got, ref),
+        "within": bool((diff <= spec["atol"] + spec["rtol"] * ref.abs()).all()),
+        "corr": float(torch.corrcoef(torch.stack([got.flatten(), ref.flatten()]).double())[0, 1])}
+    out.update(emulation(got, plain, args, kwargs, a["x"]))
+    del got, ref, diff
+    out["ms"] = cuda_ms(lambda: fn(*args, **kwargs))
+    out["plain_ms"] = cuda_ms(lambda: plain(*args, **kwargs))
+    out["device_ms"] = device_kernel_ms(lambda: fn(*args, **kwargs), calls=3)
+    flop, nbytes = tp_work(name, a)
+    out["bound_ms"], out["bound_by"] = bound(flop, nbytes, spec["peak"])
+    out["flop"], out["bytes"] = flop, nbytes
+    return out
+
+
+def tp_rank(path: str) -> None:
+    """One rank of the `tp_gloo` job (`parallel.train.run_job`: TP_STEPS
+    steps on mesh (1, TP_RANKS)), then one more step with its `_tp` calls
+    recorded and replayed (`tp_call`); writes `path`.rank{r}."""
+    import torch
+    import torch.distributed as dist
+
+    from rvc_tpu_torch.ops.kernels import record_calls
+    from rvc_tpu_torch.parallel.train import run_job
+
+    job = torch.load(path, weights_only=False)
+    trainer, step, batch, _, out = run_job(dict(job, dir=os.path.dirname(path)))
+    with record_calls() as calls:
+        step(batch, trainer.generator)
+    calls = [c for c in calls if c[0].__name__ in TP_KERNELS]
+    with torch.inference_mode():
+        out["tp_calls"] = [tp_call(fn, args, kwargs) for fn, args, kwargs in calls]
+    torch.save(out, f"{path}.rank{dist.get_rank()}")
+
+
+def rule_bytes(cfg, n_data: int, n_model: int, min_size: int) -> dict:
+    """Per-rank bytes of G and D (training) by the port's rules alone: a
+    parameter split over "model" holds 1 / n_model, a moment split over
+    "data" (`zero1_dim`) 1 / n_data of that; float32 parameters and second
+    moments, first moments in the config's type, two int32 counts."""
+    import torch
+
+    from rvc_tpu_torch.models.discriminators import build_discriminator
+    from rvc_tpu_torch.models.synthesizer import build_synthesizer
+    from rvc_tpu_torch.parallel import tp
+    from rvc_tpu_torch.parallel.mesh import zero1_dim
+
+    with torch.device("meta"):
+        nets = (build_synthesizer(cfg, training=True), "synthesizer"), \
+            (build_discriminator(cfg), "discriminator")
+    mu = 2 if cfg.train.use_bf16 else 4
+    params = opt = 0
+    for net, family in nets:
+        dims = tp.plan(net, family, n_model, min_size)
+        for k, p in net.named_parameters():
+            n = p.numel() // (n_model if dims[k] is not None else 1)
+            params += 4 * n
+            z = zero1_dim(tuple(p.shape), n_data, dims[k], min_size)
+            opt += (n // (n_data if z is not None else 1)) * (mu + 4)
+    return {"param_bytes_per_device": params, "opt_bytes_per_device": opt + 2 * 4}
+
+
+def phase_tp_gloo(work: str, single: dict) -> tuple:
+    """Two tensor-parallel ranks (mesh (1, TP_RANKS), gloo, both on the
+    first card; `tp_rank`) at the train phase's full width and ddp_gloo's
+    batch, at the default min_size, TP_STEPS steps from the single card's
+    init and draws: step-1 losses and the gathered G / D after the steps
+    against `ddp_gloo`'s single-card run at its bars, each rank's bytes
+    against `rule_bytes` and the single card, the launches, the model
+    axis's collectives, and every `_tp` call of one more step against its
+    plain partial version. Returns ({path: launches} per rank, the `_tp`
+    kernels' summary)."""
+    import torch
+
+    import chip_smoke as spawnable       # the ranks import tp_rank by its module's name
+    from rvc_tpu_torch.configs import config_to_dict, get_config
+    from rvc_tpu_torch.parallel.mesh import MIN_SIZE
+    from rvc_tpu_torch.parallel.train import spawn
+
+    cfg = get_config(48000, train_batch_size=DDP_BATCH, **TRAIN_CFG)
+    batch = ddp_batch(cfg, SEED)
+    job = os.path.join(work, "tp_job.pt")
+    torch.save({"config": config_to_dict(cfg), "seed": SEED, "device": TRAIN_DEVICE,
+                "batch": tuple(batch), "steps": TP_STEPS, "draws": None,
+                "mesh_model": TP_RANKS}, job)
+    t0 = time.perf_counter()
+    spawn(spawnable.tp_rank, TP_RANKS, (job,), backend="gloo", device=TRAIN_DEVICE)
+    spawn_s = time.perf_counter() - t0
+    ranks = [torch.load(f"{job}.rank{r}", weights_only=False) for r in range(TP_RANKS)]
+
+    ref = single["metrics"]
+    loss_rel = [{k: abs(r["metrics"][0][k] - ref[0][k]) / max(abs(ref[0][k]), 1e-12)
+                 for k in DDP_LOSSES} for r in ranks]
+    params = [{"G": flat_rel_l2(r["g"], single["g"]), "D": flat_rel_l2(r["d"], single["d"])}
+              for r in ranks]
+    gathered_equal = all(torch.equal(ranks[0][n][k], r[n][k]) for r in ranks[1:]
+                         for n in ("g", "d") for k in ranks[0][n])
+    rules = rule_bytes(cfg, 1, TP_RANKS, MIN_SIZE)
+    want = {k: n * TP_STEPS for k, n in TP_LAUNCHES.items()}
+    calls = [c for r in ranks for c in r["tp_calls"]]
+    held = [c for c in calls if c["within"] and c["corr"] > c_bar(c, "min_corr")
+            and emulation_holds(c, c_bar(c, "emu_rel_l2"))]
+    card = card_line()
+    per_step = [{k: v / TP_STEPS for k, v in r["model_comm"].items()} for r in ranks]
+    out = {"phase": "tp_gloo", "card": card, "mesh": ranks[0]["mesh"], "backend": "gloo",
+           "devices": [TRAIN_DEVICE] * TP_RANKS, "min_size": MIN_SIZE,
+           "config": f"get_config(48000, **{TRAIN_CFG}), random init from seed {SEED}",
+           "global_batch": DDP_BATCH, "frames": DDP_FRAMES, "steps": TP_STEPS,
+           "spawn_s": spawn_s, "step_ms_per_rank": [r["step_ms"] for r in ranks],
+           "single_card_step_ms": single["step_ms"],
+           "model_axis_per_step": per_step,
+           "data_axis_all_reduce_bytes_per_step": ranks[0]["all_reduced_bytes"] / TP_STEPS,
+           "comm_ms_per_rank": [r["comm_ms"] for r in ranks],
+           "bytes": {"per_rank": [r["state_bytes"] for r in ranks], "rules": rules,
+                     "single_card": single["bytes"]},
+           "step1_loss_rel": loss_rel, "params_rel_l2_after_steps": params,
+           "gathered_equal_on_ranks": gathered_equal,
+           "launches_per_rank": [r["launches"] for r in ranks],
+           "sharded_parameters": ranks[0]["tp_kinds"],
+           "tp_calls": calls, "tp_calls_held": len(held)}
+    emit(out)
+    bytes_ok = all(r["state_bytes"][k] == rules[k]
+                   and r["state_bytes"][k] < single["bytes"][k]
+                   for r in ranks for k in rules)
+    ok = (gathered_equal and bytes_ok and len(held) == len(calls) > 0
+          and all(v < DDP_LOSS_BAR for x in loss_rel for v in x.values())
+          and all(v < DDP_PARAM_BAR for p in params for v in p.values())
+          and all(r["launches"] == want for r in ranks)
+          and all(p["all_reduce"] > 0 for p in per_step))
+    if not ok:
+        raise AssertionError(
+            f"tp_gloo against the single card: losses {loss_rel}, params {params}, gathered "
+            f"equal {gathered_equal}, bytes {[r['state_bytes'] for r in ranks]} (rules {rules}), "
+            f"launches {[r['launches'] for r in ranks]} (want {want}), held {len(held)} of "
+            f"{len(calls)} `_tp` calls")
+    summary = []
+    for name, spec in TP_KERNELS.items():
+        mine = [c for c in ranks[0]["tp_calls"] if c["name"] == name]
+        flop, nbytes = sum(c["flop"] for c in mine), sum(c["bytes"] for c in mine)
+        bound_ms, bound_by = bound(flop, nbytes, spec["peak"])
+        device = {}
+        for c in mine:
+            for k, v in c["device_ms"].items():
+                device[k] = device.get(k, 0.0) + v
+        summary.append(dict(
+            name=spec["name"], route="cuda", source=spec["source"], entry=spec["entry"],
+            replaces=spec["replaces"], launches=ranks[0]["launches"][name], calls=len(mine),
+            max_abs_err=max(c["max_abs"] for c in calls if c["name"] == name),
+            ms=sum(c["ms"] for c in mine), plain_ms=sum(c["plain_ms"] for c in mine),
+            device_ms=device, bound_ms=bound_ms, bound_by=bound_by, bound=bound_text(spec["peak"]),
+            library_ms=None, ms_note="one call with its gloo all-reduces, rank 0, one step's "
+                                     "calls summed; device_ms: the kernels alone",
+            emu_rel_l2=max(c["emu_rel_l2"] for c in calls if c["name"] == name),
+            launches_by_path={f"tp_gloo_rank{i}": r["launches"][name]
+                              for i, r in enumerate(ranks)}))
+    return {f"tp_gloo_rank{i}": r["launches"] for i, r in enumerate(ranks)}, summary
+
+
+def c_bar(call: dict, key: str) -> float:
+    """A `_tp` call's bar `key` from its kernel's spec."""
+    return TP_KERNELS[call["name"]][key]
+
+
+def phase_tp_nccl(work: str) -> None:
+    """`train --mesh_model 2` through its own bootstrap on the train
+    phase's dataset, one epoch, one rank a card over NCCL, where the
+    machine has two cards or more; else what stopped it."""
+    import torch
+
+    n = torch.cuda.device_count()
+    if n < 2 or n % 2 or TRAIN_DEVICE != "cuda":
+        emit({"phase": "tp_nccl", "skipped": f"{n} card(s): --mesh_model 2 with one rank a "
+                                              f"card needs an even count of two or more"})
+        return
+    logs = os.path.join(work, "logs")
+    argv = ["train", "--model_name", "voice", "--logs_dir", logs, "--sample_rate", "48000",
+            "--total_epoch", "1", "--save_every_epoch", "10", "--cleanup", "--mesh_model", "2",
+            "--batch_size", str(max(1, TRAIN_BATCH // (n // 2)))]
+    if TRAIN_CFG:
+        argv += ["--config_overrides", json.dumps(TRAIN_CFG)]
+    _, wall_s, _ = _cli_train(argv)          # the ranks print from their own processes
+    with open(os.path.join(logs, "voice", "ckpt", "train_log.jsonl")) as f:
+        epoch = json.loads(f.read().splitlines()[-1])
+    model = os.path.join(logs, "voice", "voice.safetensors")
+    emit({"phase": "tp_nccl", "cards": n, "mesh": {"data": n // 2, "model": 2},
+          "wall_s": wall_s, "epoch": epoch, "steps_per_s": epoch["batches"] / epoch["seconds"],
+          "exported": os.path.exists(model), "card": card_line()})
+    if not os.path.exists(model) or not math.isfinite(epoch["loss_g_total"]):
+        raise AssertionError(f"train --mesh_model 2 over NCCL: {epoch}, export {model}")
 
 
 def _cli_train(argv: list) -> tuple:
@@ -2645,7 +2932,7 @@ def main() -> int:
     if len(out) != want or not np.isfinite(out).all():
         raise AssertionError(f"pipeline output: {len(out)} samples (want {want}), "
                              f"finite={bool(np.isfinite(out).all())}")
-    missing = [k for k, n in launches.items() if n <= 0]
+    missing = [k for k in KERNELS if launches[k] <= 0]
     if missing:
         raise AssertionError(f"the main path never launched {missing}")
 
@@ -2685,8 +2972,11 @@ def main() -> int:
     del rvc
     with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as work:
         train_launches = phase_train(work)
-        ddp_launches = phase_ddp_gloo(work)
+        ddp_launches, single = phase_ddp_gloo(work)
+        tp_launches, tp_summary = phase_tp_gloo(work, single)
+        del single
         nccl_launches = phase_ddp_nccl(work)
+        phase_tp_nccl(work)
         phase_tools(work)
     for entry, name in zip(summary, KERNELS):
         entry["launches_by_path"] = {"pipeline": launches[name],
@@ -2700,7 +2990,9 @@ def main() -> int:
                                      **{k: v[name] for k, v in train_launches.items()},
                                      **{k: v[name] for k, v in mesh_launches.items()},
                                      **{k: v[name] for k, v in ddp_launches.items()},
+                                     **{k: v[name] for k, v in tp_launches.items()},
                                      **{k: v[name] for k, v in nccl_launches.items()}}
+    summary += tp_summary
 
     emit({"kernels": summary})
     print(card, flush=True)

@@ -33,7 +33,11 @@ and spectrograms on the card, then GAN training; `train` ends with
 also builds `logs/m/m.index` (as `index` does). On a machine with several
 cards `train` starts one rank a card itself (data parallel, ZeRO-1
 moments); across machines run one process a card with `--coordinator
-host:port --num_hosts N --host_id i` (`--batch_size` is each rank's).
+host:port --num_hosts N --host_id i` (`--batch_size` is each data index's).
+`--mesh_model N` lays the ranks out as a (ranks / N, N) mesh: each group of
+N ranks shares its rows and holds one model's tensor-parallel shards (the
+reference's rules); with `--device cpu` and no coordinator `train` starts
+N gloo ranks on the host.
 
     python -m rvc_tpu_torch.cli model_information --model_path m.pth
     python -m rvc_tpu_torch.cli model_blender --pth_path_1 a.pth --pth_path_2 b.pth
@@ -200,9 +204,12 @@ def cmd_serve(args: argparse.Namespace) -> None:
                                 f0_method=args.f0_method, sid=args.sid)
 
         server = RealtimeSocketServer(vc_factory=vc_factory, host=args.host, port=args.port)
-    print(f"serving {args.protocol} on {args.host}:{args.port} (ctrl-c to stop)", flush=True)
+    def listening(host: str, port: int) -> None:
+        # printed once the socket listens: a client that reads this line can connect
+        print(f"serving {args.protocol} on {host}:{port} (ctrl-c to stop)", flush=True)
+
     try:
-        asyncio.run(server.serve())
+        asyncio.run(server.serve(on_listening=listening))
     except KeyboardInterrupt:
         print("stopped")
 
@@ -291,8 +298,9 @@ def _default_pretrains(args: argparse.Namespace):
 
 
 def _spawns_ranks(args: argparse.Namespace) -> int:
-    """The ranks `train` starts itself: one a card where no coordinator is
-    given (flag or environment) and the card's run sees several; else 0."""
+    """The ranks `train` starts itself where no coordinator is given (flag
+    or environment): one a card where the card's run sees several, or
+    --mesh_model gloo ranks on the host under --device cpu; else 0."""
     import torch
     import torch.distributed as dist
 
@@ -300,28 +308,31 @@ def _spawns_ranks(args: argparse.Namespace) -> int:
 
     given = (args.coordinator or args.num_hosts or os.environ.get("COORDINATOR_ADDRESS")
              or os.environ.get("MASTER_ADDR"))
-    if given or dist.is_initialized() or resolve_device(args.device).type != "cuda":
+    if given or dist.is_initialized():
         return 0
+    if resolve_device(args.device).type != "cuda":
+        return args.mesh_model if args.mesh_model > 1 else 0
     n = torch.cuda.device_count()
+    if n % args.mesh_model:
+        raise SystemExit(f"--mesh_model {args.mesh_model} needs a multiple of "
+                         f"{args.mesh_model} ranks, one a card; this machine has {n} card(s)")
     return n if n > 1 else 0
 
 
 def cmd_train(args: argparse.Namespace) -> None:
     """Train on the experiment's filelist and export the inference model
     (`rvc_tpu/cli.py:cmd_train`): on one card, on one rank a card of this
-    machine, or as rank --host_id of --num_hosts joined at --coordinator."""
+    machine, or as rank --host_id of --num_hosts joined at --coordinator;
+    --mesh_model N: on a (ranks / N, N) mesh, tensor-parallel over N."""
     import torch.distributed as dist
 
     from rvc_tpu_torch.parallel import distributed
-    from rvc_tpu_torch.parallel.mesh import TP_NOT_PORTED
 
-    if args.mesh_model > 1:
-        raise NotImplementedError(TP_NOT_PORTED)
     ranks = _spawns_ranks(args)
     if ranks:
         from rvc_tpu_torch.parallel.train import cli_train, spawn
 
-        spawn(cli_train, ranks, (args,))
+        spawn(cli_train, ranks, (args,), device=args.device)
         return
     joins = not dist.is_initialized()
     info = distributed.initialize(args.coordinator, args.num_hosts, args.host_id,
@@ -345,9 +356,12 @@ def _train(args: argparse.Namespace, info: dict) -> None:
     from rvc_tpu_torch.train.trainer import RVCTrainer
     from rvc_tpu_torch.utils.device import resolve_device
 
-    shard = distributed.host_shard_info()
+    if args.mesh_model > 1 and not dist.is_initialized():
+        raise SystemExit(f"--mesh_model {args.mesh_model} needs {args.mesh_model} ranks or a "
+                         f"multiple: a --coordinator, several cards, or --device cpu")
+    shard = distributed.host_shard_info(args.mesh_model)
     mesh = distributed.global_mesh(args.mesh_model) if dist.is_initialized() else None
-    main_rank = shard["host_id"] == 0
+    main_rank = not dist.is_initialized() or dist.get_rank() == 0
     if main_rank and mesh is not None:
         print(f"distributed: {info}; mesh={mesh.shape}; hosts={shard['num_hosts']}")
     device = resolve_device(args.device)
@@ -397,10 +411,9 @@ def _train(args: argparse.Namespace, info: dict) -> None:
     if g_path or d_path:
         trainer.load_pretrained(g_path, d_path)
     result = trainer.train(args.total_epoch, save_every=args.save_every_epoch)
-    final = None
+    # every rank calls it (the shards are gathered whole); rank 0 writes
+    final = trainer.export_inference_model(os.path.join(exp_dir, f"{args.model_name}.safetensors"))
     if main_rank:
-        final = trainer.export_inference_model(
-            os.path.join(exp_dir, f"{args.model_name}.safetensors"))
         if args.index_algorithm:
             try:
                 cmd_index(args)
@@ -408,7 +421,8 @@ def _train(args: argparse.Namespace, info: dict) -> None:
                 print(f"warning: post-training index build failed ({e}); run `index` by "
                       f"hand", file=sys.stderr)
     print(json.dumps({"epochs_run": result["epochs_run"], "best_loss": result["best_loss"],
-                      "model": final, "host": shard["host_id"]}))
+                      "model": final if main_rank else None, "host": shard["host_id"],
+                      "rank": dist.get_rank() if dist.is_initialized() else 0}))
 
 
 def cmd_index(args: argparse.Namespace) -> None:
@@ -530,7 +544,7 @@ def _add_train_args(sub) -> None:
                    help="ranks in all (one process a card)")
     p.add_argument("--host_id", type=int, default=None, help="this process's rank")
     p.add_argument("--mesh_model", type=int, default=1,
-                   help="model-parallel axis size (only 1: tensor parallelism is not ported)")
+                   help="model-parallel axis size (the data axis gets the rest of the ranks)")
     p.add_argument("--config_overrides", default=None,
                    help='JSON dict of get_config kwargs, e.g. \'{"model_n_layers": 2}\'')
     p.add_argument("--no_shuffle", action="store_true",

@@ -42,6 +42,17 @@
 // sums as a float32 FMA loop (conv_mma).
 // Left for later: wgmma (64-row A tiles from swizzled shared memory, which
 // arbitrary row shifts break), TMA, a persistent grid, a whole chain per launch.
+//
+// The partial-sum launch (tensor parallelism, rvc_resblock_step_partial): a rank
+// of a model group of n holds C_M = C / n of the step's mid channels (conv1's
+// outputs, conv2's inputs). The same kernel, instantiated on (C, C_M), runs
+// conv1 on C_M outputs (C_M / 32 warps across channels, the rest across rows),
+// the Bf plane on C_M channels, and conv2 from C_M inputs to all C outputs; it
+// writes the rank's partial conv2 sum, plus x + b2 on the rank that carries the
+// residual. The caller all-reduces the partial sums over the model group. Same
+// arithmetic: bf16 operands, float32 sums, the 16-byte-padded shared planes,
+// cp.async weight chunks. It bounds as the whole step does, on 1 / n of its
+// operations.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -65,15 +76,17 @@ constexpr int MAX_K = 17;                // conv1 needs at most TT / 16 + 1 row 
 constexpr int MIN_BLOCKS = 2;
 constexpr int CHUNK_BYTES = 16384;
 
-template <int C> struct Cfg {
+// C: the step's input and output channels; CM: its mid channels (conv1's
+// outputs, conv2's inputs), C for a whole step
+template <int C, int CM> struct Cfg {
   static constexpr int TT = 16384 / C;          // 512, 256, 128, 64 output rows
-  static constexpr int WN = C / 32;             // warps across channels
-  static constexpr int WM = WARPS / WN;         // warps across rows
-  static constexpr int LD = C + PAD;            // plane row stride (bf16)
+  static constexpr int LD = C + PAD;            // A plane row stride (bf16)
+  static constexpr int LDM = CM + PAD;          // Bf plane row stride (bf16)
   static constexpr int KCH = CHUNK_BYTES / 2 / C;  // weight columns a chunk
   static constexpr int WLD = KCH + PAD;         // weight row stride (bf16)
-  static_assert(TT / 16 == 4 * WM, "conv2's row tiles split 4 per warp");
+  static_assert(TT / 16 == 4 * (WARPS / (C / 32)), "conv2's row tiles split 4 per warp");
   static_assert(KCH % 32 == 0, "a chunk holds whole KG groups of k16 steps");
+  static_assert(CM % 32 == 0 && CM <= C, "conv1's outputs split 32 per warp");
 };
 
 __device__ __forceinline__ float lrelu(float v, float slope) {
@@ -113,18 +126,21 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// Weight chunk q of the step (conv1's chunks, then conv2's) into buffer q & 1.
-template <int C>
-__device__ __forceinline__ void load_chunk(int q, int nchunk, int KC,
+// Weight chunk q of the step (conv1's nchunk1 chunks of CM rows of K * C
+// columns, then conv2's of C rows of K * CM columns) into buffer q & 1.
+template <int C, int CM>
+__device__ __forceinline__ void load_chunk(int q, int nchunk1, int K,
                                            const __nv_bfloat16* __restrict__ w1,
                                            const __nv_bfloat16* __restrict__ w2,
                                            __nv_bfloat16* wbuf) {
-  using G = Cfg<C>;
-  const __nv_bfloat16* wg = q < nchunk ? w1 : w2;
-  const int k0 = (q % nchunk) * G::KCH;
+  using G = Cfg<C, CM>;
+  const bool first = q < nchunk1;
+  const __nv_bfloat16* wg = first ? w1 : w2;
+  const int KC = K * (first ? C : CM), rows = first ? CM : C;
+  const int k0 = (first ? q : q - nchunk1) * G::KCH;
   const int pieces = min(G::KCH, KC - k0) / 8;  // 16-byte pieces a row
   __nv_bfloat16* dst = wbuf + (q & 1) * C * G::WLD;
-  for (int i = threadIdx.x; i < C * pieces; i += THREADS) {
+  for (int i = threadIdx.x; i < rows * pieces; i += THREADS) {
     const int n = i / pieces, j = i - n * pieces;
     cp_async16(smem_u32(dst + n * G::WLD + j * 8), wg + (size_t)n * KC + k0 + j * 8);
   }
@@ -132,26 +148,29 @@ __device__ __forceinline__ void load_chunk(int q, int nchunk, int KC,
 }
 
 // acc = sum over the conv's chunks q0 .. q0 + nchunk - 1 of plane x weights, for
-// this warp's row tiles mt = wm + i * WM (< Mt) and channels n0 .. n0 + 31.
-// Prefetches the next chunk of the step while it computes on this one.
+// this warp's row tiles mt = wm + i * WM (< Mt) and channels n0 .. n0 + 31 of
+// the conv's NOUT outputs (NOUT / 32 warps across channels, WM across rows), from
+// CIN input channels a tap in rows of LDP bf16. Prefetches the step's next chunk
+// (of nq in all) while it computes on this one.
 // The tensor cores truncate as they accumulate, so one long chain of mma
 // drifts: on k = 11, C = 256 chains on an H100, 1.4x as far from the float64
 // sums as cuDNN's float32 convs. Each row tile sums KG k16 steps in fresh
 // registers and adds them to acc in float32, which brings it to 0.75x.
-template <int C>
+template <int C, int CM, int NOUT, int CIN, int LDP>
 __device__ __forceinline__ void conv_mma(float (&acc)[MI][NJ][4],
                                          const __nv_bfloat16* plane, int Mt, int dil,
-                                         int q0, int nchunk, int KC,
-                                         const __nv_bfloat16* __restrict__ w1,
+                                         int q0, int nchunk, int KC, int nchunk1, int nq,
+                                         int K, const __nv_bfloat16* __restrict__ w1,
                                          const __nv_bfloat16* __restrict__ w2,
                                          __nv_bfloat16* wbuf) {
-  using G = Cfg<C>;
+  using G = Cfg<C, CM>;
+  constexpr int WN = NOUT / 32, WM = WARPS / WN;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wm = warp / G::WN, n0 = (warp % G::WN) * 32;
+  const int wm = warp / WN, n0 = (warp % WN) * 32;
   // ldmatrix row addresses: A rows lane % 16 at k + (lane / 16) * 8; B rows
   // (channels) n0 + (lane / 16) * 8 + lane % 8 at k + ((lane / 8) % 2) * 8
   const uint32_t a_lane =
-      smem_u32(plane) + 2 * ((lane & 15) * G::LD + (lane >> 4) * 8 + wm * 16 * G::LD);
+      smem_u32(plane) + 2 * ((lane & 15) * LDP + (lane >> 4) * 8 + wm * 16 * LDP);
   const int b_lane = 2 * ((n0 + ((lane >> 4) << 3) + (lane & 7)) * G::WLD + ((lane >> 3) & 1) * 8);
 #pragma unroll
   for (int i = 0; i < MI; ++i)
@@ -164,10 +183,10 @@ __device__ __forceinline__ void conv_mma(float (&acc)[MI][NJ][4],
     const int q = q0 + c;
     cp_async_wait_all();
     __syncthreads();  // chunk q and the plane are in; buffer (q + 1) & 1 is free
-    if (q + 1 < 2 * nchunk) load_chunk<C>(q + 1, nchunk, KC, w1, w2, wbuf);
+    if (q + 1 < nq) load_chunk<C, CM>(q + 1, nchunk1, K, w1, w2, wbuf);
     const uint32_t wsm = smem_u32(wbuf + (q & 1) * C * G::WLD) + b_lane;
     const int k0 = c * G::KCH;
-    const int nk = min(G::KCH, KC - k0) / 16;  // even, as C / 16 and KCH / 16 are
+    const int nk = min(G::KCH, KC - k0) / 16;  // even, as CIN / 16 and KCH / 16 are
     for (int ks = 0; ks < nk; ks += KG) {
       uint32_t b[KG][NJ][2];
       uint32_t a_k[KG];
@@ -178,16 +197,16 @@ __device__ __forceinline__ void conv_mma(float (&acc)[MI][NJ][4],
         for (int jp = 0; jp < NJ / 2; ++jp)
           ldsm_x4(b[s][2 * jp][0], b[s][2 * jp][1], b[s][2 * jp + 1][0], b[s][2 * jp + 1][1],
                   wsm + 2 * (16 * jp * G::WLD + (ks + s) * 16));
-        a_k[s] = a_lane + 2 * ((kk / C) * dil * G::LD + kk % C);
+        a_k[s] = a_lane + 2 * ((kk / CIN) * dil * LDP + kk % CIN);
       }
 #pragma unroll
       for (int i = 0; i < MI; ++i) {
-        if (wm + i * G::WM < Mt) {
+        if (wm + i * WM < Mt) {
           float part[NJ][4] = {};
 #pragma unroll
           for (int s = 0; s < KG; ++s) {
             uint32_t a[4];
-            ldsm_x4(a[0], a[1], a[2], a[3], a_k[s] + 2 * (i * G::WM * 16 * G::LD));
+            ldsm_x4(a[0], a[1], a[2], a[3], a_k[s] + 2 * (i * WM * 16 * LDP));
 #pragma unroll
             for (int j = 0; j < NJ; ++j) mma_bf16(part[j], a, b[s][j][0], b[s][j][1]);
           }
@@ -201,24 +220,29 @@ __device__ __forceinline__ void conv_mma(float (&acc)[MI][NJ][4],
   }
 }
 
-template <int C>
+// One dilation step. CM == C: y = alpha * (x + conv2 + b2) + beta * y. CM < C
+// (a rank's share of the mid channels): y = conv2 (+ x + b2 where residual), with
+// alpha 1 and beta 0.
+template <int C, int CM>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) resblock_step_kernel(
     const float* __restrict__ x, float* __restrict__ y,
     const __nv_bfloat16* __restrict__ w1, const float* __restrict__ b1,
     const __nv_bfloat16* __restrict__ w2, const float* __restrict__ b2,
-    int T, int K, int dil, float slope, float alpha, float beta) {
-  using G = Cfg<C>;
-  constexpr int TT = G::TT, LD = G::LD;
+    int T, int K, int dil, float slope, float alpha, float beta, int residual) {
+  using G = Cfg<C, CM>;
+  constexpr int TT = G::TT, LD = G::LD, LDM = G::LDM;
+  constexpr int WN1 = CM / 32, WM1 = WARPS / WN1;  // conv1: CM outputs
+  constexpr int WN2 = C / 32, WM2 = WARPS / WN2;   // conv2: C outputs
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int h1 = (K - 1) / 2 * dil, h2 = (K - 1) / 2;
   const int W1 = TT + 2 * (h1 + h2), W2 = TT + 2 * h2;
   __nv_bfloat16* wbuf = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // 2 chunks
   __nv_bfloat16* A = wbuf + 2 * C * G::WLD;                          // W1 + 15 rows
-  __nv_bfloat16* Bf = A;  // W2 rows, over A once conv1 has read it
-  const int KC = K * C;
-  const int nchunk = (KC + G::KCH - 1) / G::KCH;
+  __nv_bfloat16* Bf = A;  // W2 rows of CM channels, over A once conv1 has read it
+  const int KC1 = K * C, KC2 = K * CM;
+  const int nchunk1 = (KC1 + G::KCH - 1) / G::KCH, nchunk2 = (KC2 + G::KCH - 1) / G::KCH;
 
-  load_chunk<C>(0, nchunk, KC, w1, w2, wbuf);
+  load_chunk<C, CM>(0, nchunk1, K, w1, w2, wbuf);
 
   const int t0 = blockIdx.x * TT;
   const float* xb = x + (size_t)blockIdx.y * T * C;
@@ -248,46 +272,55 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) resblock_step_kernel(
   }
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wm = warp / G::WN, n0 = (warp % G::WN) * 32;
   const int g = lane >> 2, t4 = lane & 3;  // accumulator row g (+8), columns 2 t4 (+1)
   float acc[MI][NJ][4];
 
   // conv1 on W2 rows rounded up to 16; its epilogue writes Bf's W2 rows
-  conv_mma<C>(acc, A, (W2 + 15) / 16, dil, 0, nchunk, KC, w1, w2, wbuf);
+  conv_mma<C, CM, CM, C, LD>(acc, A, (W2 + 15) / 16, dil, 0, nchunk1, KC1, nchunk1,
+                             nchunk1 + nchunk2, K, w1, w2, wbuf);
   __syncthreads();  // every warp is done reading A
-  const int tb = t0 - h2;  // time of Bf's row 0
+  {
+    const int wm = warp / WN1, n0 = (warp % WN1) * 32;
+    const int tb = t0 - h2;  // time of Bf's row 0
 #pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-    const int n = n0 + 8 * j + 2 * t4;
-    const float2 bb = *reinterpret_cast<const float2*>(b1 + n);
+    for (int j = 0; j < NJ; ++j) {
+      const int n = n0 + 8 * j + 2 * t4;
+      const float2 bb = *reinterpret_cast<const float2*>(b1 + n);
 #pragma unroll
-    for (int i = 0; i < MI; ++i) {
+      for (int i = 0; i < MI; ++i) {
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = (wm + i * G::WM) * 16 + g + 8 * h;
-        if (r < W2) {
-          const bool ok = tb + r >= 0 && tb + r < T;
-          const float v0 = ok ? lrelu(acc[i][j][2 * h] + bb.x, slope) : 0.f;
-          const float v1 = ok ? lrelu(acc[i][j][2 * h + 1] + bb.y, slope) : 0.f;
-          *reinterpret_cast<__nv_bfloat162*>(Bf + r * LD + n) = __floats2bfloat162_rn(v0, v1);
+        for (int h = 0; h < 2; ++h) {
+          const int r = (wm + i * WM1) * 16 + g + 8 * h;
+          if (r < W2) {
+            const bool ok = tb + r >= 0 && tb + r < T;
+            const float v0 = ok ? lrelu(acc[i][j][2 * h] + bb.x, slope) : 0.f;
+            const float v1 = ok ? lrelu(acc[i][j][2 * h + 1] + bb.y, slope) : 0.f;
+            *reinterpret_cast<__nv_bfloat162*>(Bf + r * LDM + n) =
+                __floats2bfloat162_rn(v0, v1);
+          }
         }
       }
     }
   }
 
-  // conv2 on TT rows, then y = alpha * (x + conv2 + b2) + beta * y
-  conv_mma<C>(acc, Bf, TT / 16, 1, nchunk, nchunk, KC, w1, w2, wbuf);
+  // conv2 on TT rows, then y = alpha * (x + conv2 + b2) + beta * y (x and b2
+  // only where residual)
+  conv_mma<C, CM, C, CM, LDM>(acc, Bf, TT / 16, 1, nchunk1, nchunk2, KC2, nchunk1,
+                              nchunk1 + nchunk2, K, w1, w2, wbuf);
+  const int wm = warp / WN2, n0 = (warp % WN2) * 32;
 #pragma unroll
   for (int j = 0; j < NJ; ++j) {
     const int n = n0 + 8 * j + 2 * t4;
-    const float2 bb = *reinterpret_cast<const float2*>(b2 + n);
+    const float2 bb = residual ? *reinterpret_cast<const float2*>(b2 + n) : make_float2(0.f, 0.f);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int t = t0 + (wm + i * G::WM) * 16 + g + 8 * h;
+        const int t = t0 + (wm + i * WM2) * 16 + g + 8 * h;
         if (t < T) {
-          const float2 xv = __ldg(reinterpret_cast<const float2*>(xb + (size_t)t * C + n));
+          const float2 xv = residual
+              ? __ldg(reinterpret_cast<const float2*>(xb + (size_t)t * C + n))
+              : make_float2(0.f, 0.f);
           float2* dst = reinterpret_cast<float2*>(yb + (size_t)t * C + n);
           float2 res = make_float2(alpha * (xv.x + acc[i][j][2 * h] + bb.x),
                                    alpha * (xv.y + acc[i][j][2 * h + 1] + bb.y));
@@ -303,14 +336,14 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) resblock_step_kernel(
   }
 }
 
-template <int C>
+template <int C, int CM>
 int launch(const float* x, float* y, const __nv_bfloat16* w1, const float* b1,
            const __nv_bfloat16* w2, const float* b2, int B, int T, int K, int dil,
-           float slope, float alpha, float beta, cudaStream_t stream) {
-  using G = Cfg<C>;
+           float slope, float alpha, float beta, int residual, cudaStream_t stream) {
+  using G = Cfg<C, CM>;
   // the opt-in shared memory limit, set once for this instantiation
   static const cudaError_t attr = cudaFuncSetAttribute(
-      resblock_step_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+      resblock_step_kernel<C, CM>, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
   if (attr != cudaSuccess) return (int)attr;
   const int h1 = (K - 1) / 2 * dil, h2 = (K - 1) / 2;
   const size_t rows = (size_t)(G::TT + 2 * (h1 + h2) + 15);
@@ -318,8 +351,8 @@ int launch(const float* x, float* y, const __nv_bfloat16* w1, const float* b1,
   if (K % 2 == 0 || K > MAX_K || dil < 1 || smem > (size_t)MAX_SMEM)
     return (int)cudaErrorInvalidValue;
   const dim3 grid((T + G::TT - 1) / G::TT, B);
-  resblock_step_kernel<C><<<grid, THREADS, smem, stream>>>(x, y, w1, b1, w2, b2, T, K, dil,
-                                                           slope, alpha, beta);
+  resblock_step_kernel<C, CM><<<grid, THREADS, smem, stream>>>(
+      x, y, w1, b1, w2, b2, T, K, dil, slope, alpha, beta, residual);
   return (int)cudaGetLastError();
 }
 
@@ -337,10 +370,35 @@ extern "C" int rvc_resblock_step(const float* x, float* y, const void* w1,
   const auto* v1 = static_cast<const __nv_bfloat16*>(w1);
   const auto* v2 = static_cast<const __nv_bfloat16*>(w2);
   switch (C) {
-    case 32: return launch<32>(x, y, v1, b1, v2, b2, B, T, K, dil, slope, alpha, beta, stream);
-    case 64: return launch<64>(x, y, v1, b1, v2, b2, B, T, K, dil, slope, alpha, beta, stream);
-    case 128: return launch<128>(x, y, v1, b1, v2, b2, B, T, K, dil, slope, alpha, beta, stream);
-    case 256: return launch<256>(x, y, v1, b1, v2, b2, B, T, K, dil, slope, alpha, beta, stream);
+    case 32: return launch<32, 32>(x, y, v1, b1, v2, b2, B, T, K, dil, slope, alpha, beta, 1, stream);
+    case 64: return launch<64, 64>(x, y, v1, b1, v2, b2, B, T, K, dil, slope, alpha, beta, 1, stream);
+    case 128: return launch<128, 128>(x, y, v1, b1, v2, b2, B, T, K, dil, slope, alpha, beta, 1, stream);
+    case 256: return launch<256, 256>(x, y, v1, b1, v2, b2, B, T, K, dil, slope, alpha, beta, 1, stream);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The partial-sum launch of one dilation step on a tensor-parallel rank that holds
+// CM of the step's C mid channels: y = conv2(lrelu(conv1(lrelu(x)) + b1)) over
+// them, plus x + b2 where residual != 0 (one rank of the model group). x, y:
+// (B, T, C) float32, distinct buffers; w1: (CM, K, C) and w2: (C, K, CM) bf16 as
+// (out, tap, in); b1: (CM,), b2: (C,) float32. (C, CM) in {(128, 64), (128, 32),
+// (256, 128), (256, 64)}; K odd, at most 17. Returns cudaGetLastError()
+// (cudaErrorInvalidValue for a shape the kernel does not take).
+extern "C" int rvc_resblock_step_partial(const float* x, float* y, const void* w1,
+                                         const float* b1, const void* w2, const float* b2,
+                                         int B, int T, int C, int CM, int K, int dil,
+                                         float slope, int residual, cudaStream_t stream) {
+  const auto* v1 = static_cast<const __nv_bfloat16*>(w1);
+  const auto* v2 = static_cast<const __nv_bfloat16*>(w2);
+  const int r = residual != 0;
+  if (C == 128 && CM == 64)
+    return launch<128, 64>(x, y, v1, b1, v2, b2, B, T, K, dil, slope, 1.f, 0.f, r, stream);
+  if (C == 128 && CM == 32)
+    return launch<128, 32>(x, y, v1, b1, v2, b2, B, T, K, dil, slope, 1.f, 0.f, r, stream);
+  if (C == 256 && CM == 128)
+    return launch<256, 128>(x, y, v1, b1, v2, b2, B, T, K, dil, slope, 1.f, 0.f, r, stream);
+  if (C == 256 && CM == 64)
+    return launch<256, 64>(x, y, v1, b1, v2, b2, B, T, K, dil, slope, 1.f, 0.f, r, stream);
+  return (int)cudaErrorInvalidValue;
 }

@@ -6,6 +6,12 @@ LeakyReLU(0.1) -> n_layers x [rel-pos MHA + LN + FFN + LN] -> 1x1 conv ->
 (m_p, logs_p). The attention goes through kernel K3. The posterior encoder
 (training only) takes the linear spectrogram through a 1x1 conv, a WaveNet
 and a 1x1 conv to (m_q, logs_q) and draws z = m_q + eps exp(logs_q).
+
+Under tensor parallelism (`parallel.tp`, `tp` set) the attention runs the
+rank's H / n heads (QKV column-parallel, K3 on those heads, O
+row-parallel) and the FFN the rank's hidden columns (conv_1 column,
+conv_2 row); each sums its output over the model group before its whole
+bias.
 """
 
 from __future__ import annotations
@@ -17,13 +23,29 @@ import torch
 from torch import nn
 
 from rvc_tpu_torch.models.layers import Conv1d, LayerNorm, WaveNet, leaky_relu
+from rvc_tpu_torch.ops import conv as conv_ops
 from rvc_tpu_torch.ops.commons import draw, sequence_mask
 from rvc_tpu_torch.ops.kernels.attention import rel_attention
+from rvc_tpu_torch.parallel.tp import copy_to_model, local_slice, reduce_from_model
+
+
+def _conv_shard(x: torch.Tensor, conv: Conv1d, bias) -> torch.Tensor:
+    """conv on this rank's shard of its weight, with `bias` (or none)."""
+    return conv_ops.conv1d(x, conv.weight.permute(2, 1, 0), bias, padding=conv.padding[0])
 
 
 class MultiHeadAttention(nn.Module):
     """Self-attention with windowed relative position embeddings
     (window 10, one table shared by the heads)."""
+
+    tp = None    # the model Axis where QKV / O run tensor-parallel
+
+    def tp_pair(self, model_size: int):
+        """(column members, row members) of its tensor-parallel pair; None
+        where the heads do not split evenly over the model axis."""
+        if self.n_heads % model_size:
+            return None
+        return ("conv_q.weight", "conv_k.weight", "conv_v.weight"), ("conv_o.weight",)
 
     def __init__(self, channels: int, out_channels: int, n_heads: int,
                  window_size: int = 10):
@@ -43,17 +65,34 @@ class MultiHeadAttention(nn.Module):
         B, T, C = x.shape
         H = self.n_heads
 
+        tp = self.tp
+        if tp is not None:      # the rank's heads
+            H, C = H // tp.size, C // tp.size
+            x = copy_to_model(x, tp)
+            q, k, v = (_conv_shard(x, c, local_slice(c.bias, 0, tp))
+                       for c in (self.conv_q, self.conv_k, self.conv_v))
+            emb_k, emb_v = copy_to_model(self.emb_rel_k, tp), copy_to_model(self.emb_rel_v, tp)
+        else:
+            q, k, v = self.conv_q(x), self.conv_k(x), self.conv_v(x)
+            emb_k, emb_v = self.emb_rel_k, self.emb_rel_v
+
         def split(t):
             return t.reshape(B, T, H, C // H).transpose(1, 2)
 
-        out = rel_attention(split(self.conv_q(x)), split(self.conv_k(x)),
-                            split(self.conv_v(x)), self.emb_rel_k, self.emb_rel_v,
-                            self.window_size, key_lens)
-        return self.conv_o(out.transpose(1, 2).reshape(B, T, C))
+        out = rel_attention(split(q), split(k), split(v), emb_k, emb_v, self.window_size,
+                            key_lens).transpose(1, 2).reshape(B, T, C)
+        if tp is None:
+            return self.conv_o(out)
+        return reduce_from_model(_conv_shard(out, self.conv_o, None), tp) + self.conv_o.bias
 
 
 class FFN(nn.Module):
     """Conv feed-forward with same padding and ReLU."""
+
+    tp = None    # the model Axis where conv_1 / conv_2 run tensor-parallel
+
+    def tp_pair(self, model_size: int):
+        return ("conv_1.weight",), ("conv_2.weight",)
 
     def __init__(self, in_channels: int, out_channels: int, filter_channels: int,
                  kernel_size: int):
@@ -63,8 +102,14 @@ class FFN(nn.Module):
         self.conv_2 = Conv1d(filter_channels, out_channels, kernel_size, padding=pad)
 
     def forward(self, x: torch.Tensor, x_mask: torch.Tensor) -> torch.Tensor:
-        x = torch.relu(self.conv_1(x * x_mask))
-        return self.conv_2(x * x_mask) * x_mask
+        tp = self.tp
+        if tp is None:
+            x = torch.relu(self.conv_1(x * x_mask))
+            return self.conv_2(x * x_mask) * x_mask
+        x = copy_to_model(x * x_mask, tp)
+        x = torch.relu(_conv_shard(x, self.conv_1, local_slice(self.conv_1.bias, 0, tp)))
+        x = reduce_from_model(_conv_shard(x * x_mask, self.conv_2, None), tp)
+        return (x + self.conv_2.bias) * x_mask
 
 
 class AttentionEncoder(nn.Module):

@@ -20,6 +20,7 @@ import torch
 from torch import nn
 
 from rvc_tpu_torch.models.layers import (
+    LRELU_SLOPE,
     Conv1d,
     ConvTranspose1d,
     ResBlock,
@@ -27,7 +28,7 @@ from rvc_tpu_torch.models.layers import (
     leaky_relu,
 )
 from rvc_tpu_torch.ops.commons import draw
-from rvc_tpu_torch.ops.kernels.resblock import resblock_group
+from rvc_tpu_torch.ops.kernels.resblock import resblock_group, resblock_group_tp
 
 GROUP_MAX_CHANNELS = 128
 
@@ -36,9 +37,14 @@ def _stage_resblocks(x: torch.Tensor, blocks: Sequence[ResBlock],
                      kernel_sizes: Tuple[int, ...],
                      dilations: Tuple[Tuple[int, ...], ...]) -> torch.Tensor:
     """The mean of one upsampling stage's parallel ResBlocks: one K1 call at
-    C <= 128, else K2 once per ResBlock."""
+    C <= 128, else K2 once per ResBlock. Under tensor parallelism a stage
+    with a sharded ResBlock takes K1's partial-sum call, `resblock_group_tp`
+    (its whole chains run K1 as before)."""
     if x.shape[-1] <= GROUP_MAX_CHANNELS:
         weights = tuple(t for b in blocks for t in b.stacked_weights())
+        tp = next((b.tp for b in blocks if b.tp is not None), None)
+        if tp is not None:
+            return resblock_group_tp(x, weights, kernel_sizes, dilations, LRELU_SLOPE, tp)
         return resblock_group(x, weights, kernel_sizes, dilations)
     return sum(b(x) for b in blocks) / len(blocks)
 

@@ -18,7 +18,8 @@ from torch import nn
 
 from rvc_tpu_torch.ops import conv as conv_ops
 from rvc_tpu_torch.ops.commons import fused_add_tanh_sigmoid_multiply
-from rvc_tpu_torch.ops.kernels.resblock import resblock_chain
+from rvc_tpu_torch.ops.kernels.resblock import resblock_chain, resblock_chain_tp
+from rvc_tpu_torch.parallel.tp import local_slice
 
 LRELU_SLOPE = 0.1
 
@@ -143,7 +144,11 @@ class WaveNet(nn.Module):
 class ResBlock(nn.Module):
     """HiFi-GAN ResBlock type 1: per dilation, LReLU -> dilated conv ->
     LReLU -> conv, with the residual. Runs through kernel K2
-    (`ops.kernels.resblock.resblock_chain`)."""
+    (`ops.kernels.resblock.resblock_chain`); under tensor parallelism (`tp`
+    set: convs1 column-parallel, convs2 row-parallel) through its
+    partial-sum launch (`resblock_chain_tp`)."""
+
+    tp = None    # the model Axis where the chain runs tensor-parallel
 
     def __init__(self, channels: int, kernel_size: int = 3,
                  dilations: Sequence[int] = (1, 3, 5)):
@@ -157,14 +162,25 @@ class ResBlock(nn.Module):
             Conv1d(channels, channels, kernel_size, padding=(kernel_size - 1) // 2)
             for _ in dilations)
 
+    def tp_pair(self, model_size: int):
+        return (tuple(f"convs1.{i}.weight" for i in range(len(self.convs1))),
+                tuple(f"convs2.{i}.weight" for i in range(len(self.convs2))))
+
     def stacked_weights(self) -> tuple:
-        """(w1, b1, w2, b2) in the kernel's layout: w (S, K, C, C), b (S, C)."""
+        """(w1, b1, w2, b2) in the kernel's layout: w (S, K, C, C), b (S, C);
+        under tensor parallelism the rank's w1 (S, K, C, C_M), b1 (S, C_M),
+        w2 (S, K, C_M, C) and the whole b2."""
         out = []
         for convs in (self.convs1, self.convs2):
             out.append(torch.stack([c.weight.permute(2, 1, 0) for c in convs]))
             out.append(torch.stack([c.bias for c in convs]))
+        if self.tp is not None:
+            out[1] = local_slice(out[1], 1, self.tp)
         return tuple(out)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp is not None:
+            return resblock_chain_tp(x, *self.stacked_weights(), self.kernel_size,
+                                     self.dilations, LRELU_SLOPE, self.tp)
         return resblock_chain(x, *self.stacked_weights(), self.kernel_size,
                               self.dilations)

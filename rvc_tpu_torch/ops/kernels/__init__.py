@@ -5,9 +5,12 @@
 | K2     | resblock.resblock_chain             | csrc/resblock.cu     | rvc_tpu/ops/pallas/resblock.py : fused_resblock         |
 | K3     | attention.rel_attention             | csrc/rel_attention.cu| rvc_tpu/ops/pallas/attention.py : fused_rel_attention   |
 | K4     | melspec.log_mel                     | csrc/melspec.cu      | rvc_tpu/ops/pallas/melspec.py : pallas_log_mel          |
+| K1 TP  | resblock.resblock_group_tp          | csrc/resblock.cu     | K1's partial-sum launch on a tensor-parallel rank       |
+| K2 TP  | resblock.resblock_chain_tp          | csrc/resblock.cu     | K2's partial-sum launch on a tensor-parallel rank       |
 
 Each wrapper `<name>` has a plain PyTorch version `<name>_reference` with
-the same signature, which it runs for CPU tensors.
+the same signature, which it runs for CPU tensors (the `_tp` wrappers:
+`resblock_chain_partial_reference`, `resblock_group_partial_reference`).
 
 `LAUNCHES` counts each wrapper's kernel launches (and nothing else), so a
 run can show that the main path went through the kernels; `count_launch`
@@ -36,7 +39,7 @@ from typing import Callable, Iterator, List, Optional, Sequence
 import torch
 
 LAUNCHES = {"resblock_group": 0, "resblock_chain": 0, "rel_attention": 0,
-            "log_mel": 0}
+            "log_mel": 0, "resblock_group_tp": 0, "resblock_chain_tp": 0}
 
 _recording: Optional[List[tuple]] = None
 _count_lock = threading.Lock()

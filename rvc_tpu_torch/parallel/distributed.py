@@ -3,20 +3,25 @@
 
 One process a card: the reference's "host" is a rank here. `initialize`
 joins the process group at the coordinator's address and puts the process
-on its card; the trainer's loader then takes rank h's share of every
-global step (`DataLoader(num_hosts, host_id)`). NCCL joins ranks on CUDA
-devices, gloo on the CPU; neither falls back to the other.
+on its card. `global_mesh(n_model)` lays the ranks out as a (data, model)
+mesh, row-major; `rank_axes` makes the process groups of its rows (model
+groups: the ranks that share rows of the batch and hold one model's
+shards) and of its columns (data groups: the ranks that hold the same
+shards). The trainer's loader takes the share of every global step of
+this rank's data index (`host_shard_info`: the ranks of one model group
+read the same rows). NCCL joins ranks on CUDA devices, gloo on the CPU;
+neither falls back to the other.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
-from rvc_tpu_torch.parallel.mesh import Mesh, make_mesh
+from rvc_tpu_torch.parallel.mesh import Axis, Mesh, make_mesh
 
 
 def _env_int(*names: str) -> Optional[int]:
@@ -80,11 +85,39 @@ def initialize(coordinator_address: Optional[str] = None, num_processes: Optiona
 
 
 def global_mesh(n_model: int = 1) -> Mesh:
-    """The data mesh over every rank (n_model > 1 raises: not ported)."""
+    """The (world / n_model, n_model) mesh over every rank."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if n_model < 1 or world % n_model:
+        raise ValueError(f"--mesh_model {n_model} does not divide the {world} ranks")
     return make_mesh(n_model=n_model)
 
 
-def host_shard_info() -> dict:
+def rank_axes(mesh: Mesh) -> Tuple[Axis, Axis]:
+    """(data axis, model axis) of this rank on a mesh of the process group's
+    ranks. Makes one process group per model group and per data group
+    (`dist.new_group`: a collective, so every rank calls it alike); an axis
+    that spans every rank keeps the default group."""
+    n_data, n_model = mesh.shape["data"], mesh.shape["model"]
+    d, m = mesh.coords(dist.get_rank())
+    world = dist.get_world_size()
+    data_group = model_group = None
+    if n_model > 1 and n_model < world:
+        for i in range(n_data):
+            g = dist.new_group([mesh.members[i * n_model + j] for j in range(n_model)])
+            if i == d:
+                model_group = g
+    if n_data > 1 and n_data < world:
+        for j in range(n_model):
+            g = dist.new_group([mesh.members[i * n_model + j] for i in range(n_data)])
+            if j == m:
+                data_group = g
+    return Axis(n_data, d, data_group), Axis(n_model, m, model_group)
+
+
+def host_shard_info(n_model: int = 1) -> dict:
+    """The loader's shard of a global step: one a data index (the ranks of
+    a model group read the same rows)."""
     if dist.is_initialized():
-        return dict(num_hosts=dist.get_world_size(), host_id=dist.get_rank())
+        return dict(num_hosts=dist.get_world_size() // n_model,
+                    host_id=dist.get_rank() // n_model)
     return dict(num_hosts=1, host_id=0)

@@ -1,10 +1,12 @@
 """Batched and long-form conversion (counterpart of `rvc_tpu/parallel/infer.py`).
 
 `BatchConverter(rvc, mesh)` converts batches of equal-length 16 kHz
-utterances, each batch's rows split over the mesh's "data" axis as the
-reference splits them: one replica of HuBERT, RMVPE and the synthesizer
-per device of the mesh (moved there once, at construction; a device named
-twice shares one, and `rvc`'s own device uses `rvc.pipeline`), each shard
+utterances, each batch's rows split over the mesh's "data" axis only, as
+the reference splits them (`rvc_tpu/parallel/infer.py:54-55`; the models
+are whole, so a "model" axis adds no work): one replica of HuBERT, RMVPE
+and the synthesizer per data index of the mesh, on its first device
+(moved there once, at construction; a device named twice shares one, and
+`rvc`'s own device uses `rvc.pipeline`), each shard
 run on its device from its own host thread, the outputs concatenated in
 row order. Without a mesh, `rvc.pipeline`'s device alone. A replica takes
 `rvc.pipeline.source_noise` at every call.
@@ -69,7 +71,9 @@ class BatchConverter:
     def __init__(self, rvc, mesh: Optional[Mesh] = None):
         self.rvc = rvc
         self.mesh = mesh or Mesh((rvc.pipeline.device,))
-        self.devices = tuple(indexed_device(d) for d in self.mesh.devices)
+        # one device a data index: the first of its row of the mesh
+        self.devices = tuple(indexed_device(d)
+                             for d in self.mesh.devices[::self.mesh.shape["model"]])
         self._pipes = {}
         for d in self.devices:
             if d not in self._pipes:

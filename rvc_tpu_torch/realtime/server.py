@@ -114,8 +114,12 @@ class RealtimeSocketServer:
         finally:
             writer.close()
 
-    async def serve(self):
+    async def serve(self, on_listening=None):
+        """Serve until cancelled; on_listening(host, port) is called once the
+        socket listens, with the port it bound (port 0 takes a free one)."""
         self._server = await asyncio.start_server(self._handle, self.host, self.port)
+        if on_listening is not None:
+            on_listening(self.host, self._server.sockets[0].getsockname()[1])
         async with self._server:
             await self._server.serve_forever()
 
@@ -215,11 +219,15 @@ class RealtimeWebSocketServer:
             except ConnectionClosed:
                 pass
 
-    async def serve(self):
+    async def serve(self, on_listening=None):
+        """Serve until cancelled; on_listening(host, port) is called once the
+        socket listens, with the port it bound (port 0 takes a free one)."""
         import websockets
 
-        async with websockets.serve(self._handle, self.host, self.port):
+        async with websockets.serve(self._handle, self.host, self.port) as server:
             self._started.set()
+            if on_listening is not None:
+                on_listening(self.host, next(iter(server.sockets)).getsockname()[1])
             await asyncio.Future()
 
     def serve_in_thread(self) -> threading.Thread:

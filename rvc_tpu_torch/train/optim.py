@@ -19,7 +19,8 @@ skipped (parameters, moments, count), without a read-back to the host.
 
 `parallel.train.ShardedAdamW` keeps the moments of a slice of each large
 parameter (ZeRO-1): `_local` cuts what a rank updates, `_share` gathers
-the updated slices; here both are the whole.
+the updated slices, and `norm` sums a tensor-parallel rank's shards over
+its model group; here both are the whole, and the norm `global_norm`.
 """
 
 from __future__ import annotations
@@ -78,11 +79,15 @@ class AdamW:
     def _share(self) -> None:
         """Make every updated part whole on every rank."""
 
+    def norm(self, grads: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The global norm of the whole model's gradient from this rank's."""
+        return global_norm(grads)
+
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor], gate: Optional[torch.Tensor] = None) -> None:
         """One update from `grads` (one per parameter, in order); with `gate`
         (a 0-dim bool tensor) False, nothing changes."""
-        g_norm = global_norm(grads)
+        g_norm = self.norm(grads)
         keep = g_norm < MAX_NORM
         count = self.count + 1
         lr = self.learning_rate(self.count)

@@ -23,7 +23,7 @@ from rvc_tpu_torch.configs import RVCConfig
 from rvc_tpu_torch.ops.commons import slice_segments
 from rvc_tpu_torch.ops.stft import mel_spectrogram
 from rvc_tpu_torch.train import losses as L
-from rvc_tpu_torch.train.optim import AdamW, global_norm, sanitize_grads
+from rvc_tpu_torch.train.optim import AdamW, sanitize_grads
 
 METRICS = ("loss_g_total", "loss_d", "loss_mel", "loss_kl", "loss_adv", "loss_fm",
            "grad_norm_g")
@@ -109,13 +109,15 @@ class TrainStep:
         return total, dict(loss_mel=loss_mel, loss_kl=loss_kl, loss_adv=loss_adv,
                            loss_fm=loss_fm), y_hat, wave_real
 
-    # the data-parallel step (`parallel/train.py`) makes these three global
+    # the mesh's step (`parallel/train.py`) makes these three global
     def kl_denominator(self, y_mask: torch.Tensor) -> Optional[torch.Tensor]:
         """The KL's normaliser; None: this batch's mask sum."""
         return None
 
-    def reduce_grads(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
-        """The gradients of the whole batch from this step's own."""
+    def reduce_grads(self, grads: List[torch.Tensor],
+                     params: List[torch.Tensor]) -> List[torch.Tensor]:
+        """The gradients of the whole batch from this step's own (one for
+        each of `params`)."""
         return grads
 
     def reduce_loss(self, loss: torch.Tensor) -> torch.Tensor:
@@ -132,7 +134,7 @@ class TrainStep:
         params = self.g_opt.params
         grads = torch.autograd.grad(total, params, allow_unused=True)
         grads = sanitize_grads(self.reduce_grads([torch.zeros_like(p) if g is None else g
-                                                  for g, p in zip(grads, params)]))
+                                                  for g, p in zip(grads, params)], params))
         if self.enc_p is not None:
             grads = [torch.zeros_like(g) if frozen else g
                      for g, frozen in zip(grads, self.enc_p)]
@@ -142,7 +144,8 @@ class TrainStep:
         """One D update on detached segments; returns its loss (before it)."""
         params = self.d_opt.params
         loss = self.d_loss(wave_real, y_hat)
-        grads = sanitize_grads(self.reduce_grads(list(torch.autograd.grad(loss, params))))
+        grads = sanitize_grads(self.reduce_grads(list(torch.autograd.grad(loss, params)),
+                                                 params))
         loss = self.reduce_loss(loss.detach())
         threshold = self.cfg.train.d_loss_threshold
         self.d_opt.step(grads, gate=loss >= threshold if threshold > 0 else None)
@@ -162,4 +165,4 @@ class TrainStep:
             loss_d = self.d_update(wave_real, y_hat)
         return dict(loss_g_total=total.detach(), loss_d=loss_d,
                     **{k: v.detach() for k, v in losses.items()},
-                    grad_norm_g=global_norm(grads))
+                    grad_norm_g=self.g_opt.norm(grads))

@@ -13,23 +13,28 @@ included), so either package resumes the other's, with
 is the port's own file, `{name}_opt.pt` (`torch.save`; `rvc_tpu` keeps
 its own in orbax), in one format for any number of ranks: whole moments.
 
-With a mesh (the process group's ranks, `parallel.mesh.make_mesh()`), each
-rank trains a replica on its rows of every global step
+With a mesh (the process group's ranks, `parallel.mesh.make_mesh(n_model=
+...)`), each rank trains on its data index's rows of every global step
 (`parallel.train.DataParallelTrainStep`) with ZeRO-1 moments
-(`ShardedAdamW`). Replicas are broadcast from rank 0 before the first step
-and after a load or resume. Rank 0 alone writes the log, the tracker, the
-checkpoints, the eval audio and the export; every rank enters each save
-(the moments are gathered). The epoch's metrics are the global batch's,
-so "best" saves and the overtraining stop agree on every rank, and the
+(`ShardedAdamW`); with n_model > 1 G and D are laid out over the model
+axis by the reference's rules at `tp_min_size` (`parallel.tp.
+shard_modules`), each rank holding its shards. The ranks of a data group
+are broadcast from its first before the first step and after a load or
+resume. Rank 0 alone writes the log, the tracker, the checkpoints, the
+eval audio and the export; every rank enters each save and export (the
+moments and the shards are gathered whole) and renders the eval audio
+under tensor parallelism. The epoch's metrics are the global batch's, so
+"best" saves and the overtraining stop agree on every rank, and the
 SIGTERM stop is all-reduced.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import time
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -40,7 +45,8 @@ from rvc_tpu_torch.models.discriminators import build_discriminator
 from rvc_tpu_torch.models.synthesizer import build_synthesizer
 from rvc_tpu_torch.monitoring.tracker import NullTracker, RollingMean, create_tracker
 from rvc_tpu_torch.ops.stft import mel_spectrogram
-from rvc_tpu_torch.parallel.mesh import Mesh
+from rvc_tpu_torch.parallel import tp
+from rvc_tpu_torch.parallel.mesh import MIN_SIZE, Axis, Mesh
 from rvc_tpu_torch.parallel.train import (DataParallelTrainStep, ShardedAdamW,
                                           broadcast_modules)
 from rvc_tpu_torch.train.data import DataLoader
@@ -73,8 +79,10 @@ def _merge(dst: dict, src: dict, what: str, path: str) -> None:
 class RVCTrainer:
     """device: None trains on the card (and raises when there is none);
     "cpu" runs the kernels' plain versions on the host. mesh: the process
-    group's ranks (one a card), each calling with its own loader
-    (`DataLoader(num_hosts, host_id)`) and device."""
+    group's ranks (one a card) as a (data, model) mesh, each calling with
+    its own loader (`DataLoader(num_hosts, host_id)` by data index) and
+    device; tp_min_size: the sharding rules' min_size (the reference's
+    1 << 16)."""
 
     def __init__(self, cfg: RVCConfig, train_loader: DataLoader,
                  checkpoint_dir: str = "checkpoints",
@@ -83,7 +91,7 @@ class RVCTrainer:
                  freeze_encoder: bool = False, save_only_latest: bool = False,
                  save_every_weights: bool = False, cache_data_on_device: bool = False,
                  model_name: str = "model", tracker=None, use_aim: bool = False, *,
-                 mesh: Optional[Mesh] = None, device=None):
+                 mesh: Optional[Mesh] = None, device=None, tp_min_size: int = MIN_SIZE):
         self.device = resolve_device(device)
         use_fp32_numerics()
         if mesh is not None and not (dist.is_initialized()
@@ -93,6 +101,11 @@ class RVCTrainer:
         self.mesh = mesh
         self._is_main = mesh is None or dist.get_rank() == 0
         self._synced = mesh is None
+        self.data_axis, self.model_axis = Axis(), Axis()
+        if mesh is not None:
+            from rvc_tpu_torch.parallel.distributed import rank_axes
+
+            self.data_axis, self.model_axis = rank_axes(mesh)
         self.cfg = cfg
         self.train_loader = train_loader
         self.checkpoint_dir = checkpoint_dir
@@ -103,10 +116,15 @@ class RVCTrainer:
             torch.manual_seed(seed)
             net_g = build_synthesizer(cfg, training=True)
             net_d = build_discriminator(cfg)
+        self.tp_kinds: Dict[str, str] = {}     # the sharded parameters: "pair" / "gathered"
+        if self.model_axis.size > 1:
+            self.tp_kinds = tp.shard_modules(net_g, net_d, self.model_axis, tp_min_size)
         self.net_g, self.net_d = net_g.to(self.device), net_d.to(self.device)
         self.g_opt, self.d_opt = make_optimizers(
             cfg, self.net_g, self.net_d, self._steps_per_epoch,
-            optimizer=AdamW if mesh is None else ShardedAdamW)
+            optimizer=AdamW if mesh is None else functools.partial(
+                ShardedAdamW, data=self.data_axis, model=self.model_axis,
+                min_size=tp_min_size))
         # every draw of a step (the posterior's eps, the segment starts, the
         # decoder's noise) comes from this generator, on the device
         self.generator = torch.Generator(self.device).manual_seed(seed + 1)
@@ -133,26 +151,46 @@ class RVCTrainer:
 
     # ------------------------------------------------------------------
     def step_fn(self, adversarial: bool) -> TrainStep:
-        """The step; with a mesh the replicas are made equal first where a
-        load may have parted them."""
+        """The step; with a mesh the ranks of each data group are made equal
+        first where a load may have parted them."""
         if not self._synced:
-            broadcast_modules(self.net_g, self.net_d)
+            if self.data_axis.size > 1:
+                broadcast_modules(self.net_g, self.net_d, group=self.data_axis.group,
+                                  src=self.mesh.members[self.model_axis.index])
             self._synced = True
         if adversarial not in self._steps:
+            kw = ({} if self.mesh is None
+                  else dict(data=self.data_axis, model=self.model_axis))
             cls = TrainStep if self.mesh is None else DataParallelTrainStep
             self._steps[adversarial] = cls(
                 self.cfg, self.net_g, self.net_d, self.g_opt, self.d_opt,
-                adversarial=adversarial, freeze_encoder=self.freeze_encoder)
+                adversarial=adversarial, freeze_encoder=self.freeze_encoder, **kw)
         return self._steps[adversarial]
+
+    def whole_state(self, net: torch.nn.Module) -> Dict[str, torch.Tensor]:
+        """The network's whole state dict (under tensor parallelism gathered
+        over the model group: every rank of it calls)."""
+        if self.model_axis.size > 1:
+            return tp.gather_state_dict(net, self.model_axis)
+        return net.state_dict()
+
+    def _load_whole(self, net: torch.nn.Module, state: Dict[str, torch.Tensor]) -> None:
+        if self.model_axis.size > 1:
+            tp.scatter_state_dict(net, state, self.model_axis)
+        else:
+            net.load_state_dict(state)
 
     @torch.inference_mode()
     def render_eval_audio(self, name: Optional[str] = None) -> Optional[str]:
         """The eval batch through the current generator (no noise) to a wav,
-        logged with its log-mel image to the tracker (rank 0)."""
-        if self.eval_batch is None or not self._is_main:
+        logged with its log-mel image to the tracker (rank 0; under tensor
+        parallelism every rank runs the generator)."""
+        if self.eval_batch is None or not (self._is_main or self.model_axis.size > 1):
             return None
         b = self.eval_batch.to(self.device)
         wave, _ = self.net_g.infer(b.phone, b.phone_lengths, b.pitch, b.pitchf, b.sid)
+        if not self._is_main:
+            return None
         audio = wave[0, :, 0].float().cpu().numpy()
         sr = self.cfg.data.sample_rate
         path = os.path.join(self.checkpoint_dir, f"{name or f'epoch_{self.epoch:04d}'}_eval.wav")
@@ -176,19 +214,19 @@ class RVCTrainer:
                 src = W.synthesizer_from_jax(W.load_params(g_path), enc_q=True)
             else:
                 src = W.synthesizer_from_pth(W.load_torch_checkpoint(g_path), enc_q=True)
-            state = self.net_g.state_dict()
+            state = self.whole_state(self.net_g)
             for module in sorted({k.split(".")[0] for k in src}):
                 _merge(state, {k: v for k, v in src.items() if k.split(".")[0] == module},
                        f"generator {module!r}", g_path)
-            self.net_g.load_state_dict(state)
+            self._load_whole(self.net_g, state)
         if d_path and os.path.exists(d_path):
             if d_path.endswith(".safetensors"):
                 src = W.discriminator_from_jax(W.load_params(d_path))
             else:
                 src = W.discriminator_from_pth(W.load_torch_checkpoint(d_path))
-            state = self.net_d.state_dict()
+            state = self.whole_state(self.net_d)
             _merge(state, src, "discriminator", d_path)
-            self.net_d.load_state_dict(state)
+            self._load_whole(self.net_d, state)
         self._synced = self.mesh is None
 
     def save_checkpoint(self, name: Optional[str] = None, full_state: bool = True) -> str:
@@ -199,10 +237,11 @@ class RVCTrainer:
         gp = os.path.join(self.checkpoint_dir, f"{name}_G.safetensors")
         opt = ({"g_opt": self.g_opt.state_dict(), "d_opt": self.d_opt.state_dict()}
                if full_state else None)
+        g_state, d_state = self.whole_state(self.net_g), self.whole_state(self.net_d)
         if not self._is_main:
             return gp
-        W.save_params(W.synthesizer_to_jax(self.net_g.state_dict()), gp)
-        W.save_params(W.discriminator_to_jax(self.net_d.state_dict()),
+        W.save_params(W.synthesizer_to_jax(g_state), gp)
+        W.save_params(W.discriminator_to_jax(d_state),
                       os.path.join(self.checkpoint_dir, f"{name}_D.safetensors"))
         if opt is not None:
             torch.save(opt, os.path.join(self.checkpoint_dir, f"{name}_opt.pt"))
@@ -232,10 +271,12 @@ class RVCTrainer:
     def export_inference_model(self, path: str) -> str:
         """The inference weights, enc_q stripped: a `.pth` path writes the
         upstream inference checkpoint (`export_pth`), any other the native
-        `.safetensors` with its `.json` config. Rank 0 writes."""
+        `.safetensors` with its `.json` config. Every rank calls it (the
+        shards are gathered); rank 0 writes."""
+        state = self.whole_state(self.net_g)
         if not self._is_main:
             return path
-        state = {k: v for k, v in self.net_g.state_dict().items() if not k.startswith("enc_q.")}
+        state = {k: v for k, v in state.items() if not k.startswith("enc_q.")}
         if path.endswith(".pth"):
             return W.export_pth(state, self.cfg, path, pitch_guidance=self.cfg.model.use_f0,
                                 name=self.model_name)

@@ -135,6 +135,24 @@ def synthesizer_from_jax(params: Mapping, enc_q: bool = False) -> Dict[str, torc
 _PARALLEL_NAMES = {str(v): k for k, v in _PARALLEL.items()}
 
 
+def synthesizer_layout(key: str, ndim: int) -> Tuple[str, Tuple[int, ...]]:
+    """(rvc_tpu's path, perm) of a port Synthesizer parameter: the
+    reference's array is the torch tensor's `transpose(perm)` (conv weights
+    (Cout, Cin, K) -> (K, Cin, Cout), transposed ones (Cin, Cout, K) ->
+    (K, Cin, Cout))."""
+    key = re.sub(r"\.gamma$", ".weight", re.sub(r"\.beta$", ".bias", key))
+    key = re.sub(r"flows\.(\d+)\.", lambda m: f"flows_{int(m.group(1)) // 2}.", key)
+    key = re.sub(r"mrfs\.(\d+)\.(\d+)\.", r"mrfs_\1_\2.", key)
+    key = re.sub(r"blocks\.(\d+)\.([012])\.",
+                 lambda m: f"{_PARALLEL_NAMES[m.group(2)]}_{m.group(1)}.", key)
+    key = key.replace("m_source.merge.0.", "m_source_merge.")
+    key = re.sub(r"(norm_layers_[12]|" + "|".join(_INDEXED) + r")\.(\d+)\.", r"\1_\2.", key)
+    perm = tuple(range(ndim))
+    if ndim == 3 and key.endswith(".weight"):
+        perm = (2, 0, 1) if re.search(r"(^|\.)(ups|upsamples)_\d+\.weight$", key) else (2, 1, 0)
+    return key.replace(".", "/"), perm
+
+
 def synthesizer_to_jax(state: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     """The inverse of `synthesizer_from_jax`: a port Synthesizer state dict
     -> `rvc_tpu`'s flat '/'-joined parameter paths in its layouts, which
@@ -142,17 +160,8 @@ def synthesizer_to_jax(state: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarra
     out = {}
     for key, v in state.items():
         v = v.detach().float().cpu().numpy()
-        key = re.sub(r"\.gamma$", ".weight", re.sub(r"\.beta$", ".bias", key))
-        key = re.sub(r"flows\.(\d+)\.", lambda m: f"flows_{int(m.group(1)) // 2}.", key)
-        key = re.sub(r"mrfs\.(\d+)\.(\d+)\.", r"mrfs_\1_\2.", key)
-        key = re.sub(r"blocks\.(\d+)\.([012])\.",
-                     lambda m: f"{_PARALLEL_NAMES[m.group(2)]}_{m.group(1)}.", key)
-        key = key.replace("m_source.merge.0.", "m_source_merge.")
-        key = re.sub(r"(norm_layers_[12]|" + "|".join(_INDEXED) + r")\.(\d+)\.", r"\1_\2.", key)
-        if v.ndim == 3 and key.endswith(".weight"):   # back to (K, Cin, Cout)
-            transposed = re.search(r"(^|\.)(ups|upsamples)_\d+\.weight$", key)
-            v = v.transpose(2, 0, 1) if transposed else v.transpose(2, 1, 0)
-        out[key.replace(".", "/")] = np.ascontiguousarray(v)
+        path, perm = synthesizer_layout(key, v.ndim)
+        out[path] = np.ascontiguousarray(v.transpose(perm))
     return out
 
 
@@ -364,26 +373,48 @@ def _disc_names(first_weights: Mapping[int, np.ndarray]) -> Dict[int, str]:
             else f"disc_r_{next(nffts)}" for i, k in sorted(kinds.items())}
 
 
-def discriminator_to_jax(state: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
-    """A port MultiPeriodDiscriminator state dict -> `rvc_tpu`'s flat
-    '/'-joined parameter paths in its layouts."""
-    firsts = {int(m.group(1)): v.detach().cpu().numpy() for k, v in state.items()
+def discriminator_layouts(shapes: Mapping[str, Sequence[int]]
+                          ) -> Dict[str, Tuple[str, Tuple[int, ...]]]:
+    """{key: (rvc_tpu's path, perm)} of a port MultiPeriodDiscriminator's
+    parameters, from their shapes: the reference's array is the torch
+    tensor's `transpose(perm)` (conv weights to (K, Cin, Cout) and (KH, KW,
+    Cin, Cout))."""
+    firsts = {int(m.group(1)): np.broadcast_to(np.float32(0), tuple(v))
+              for k, v in shapes.items()
               if (m := re.fullmatch(r"discriminators\.(\d+)\.convs\.0\.weight", k))}
     names = _disc_names(firsts)
     out = {}
-    for key, v in state.items():
+    for key, shape in shapes.items():
         m = re.fullmatch(r"discriminators\.(\d+)\.(?:convs\.(\d+)|(conv_post))\.(weight|bias)",
                          key)
         if m is None:
             raise ValueError(f"discriminator: no rvc_tpu path for {key!r}")
-        v = v.detach().float().cpu().numpy()
-        if v.ndim == 3:
-            v = v.transpose(2, 1, 0)
-        elif v.ndim == 4:
-            v = v.transpose(2, 3, 1, 0)
+        perm = {3: (2, 1, 0), 4: (2, 3, 1, 0)}.get(len(shape), tuple(range(len(shape))))
         layer = f"convs_{m.group(2)}" if m.group(2) is not None else "conv_post"
-        out[f"{names[int(m.group(1))]}/{layer}/{m.group(4)}"] = np.ascontiguousarray(v)
+        out[key] = (f"{names[int(m.group(1))]}/{layer}/{m.group(4)}", perm)
     return out
+
+
+def discriminator_to_jax(state: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """A port MultiPeriodDiscriminator state dict -> `rvc_tpu`'s flat
+    '/'-joined parameter paths in its layouts."""
+    layouts = discriminator_layouts({k: tuple(v.shape) for k, v in state.items()})
+    out = {}
+    for key, v in state.items():
+        path, perm = layouts[key]
+        out[path] = np.ascontiguousarray(v.detach().float().cpu().numpy().transpose(perm))
+    return out
+
+
+def jax_layouts(shapes: Mapping[str, Sequence[int]], family: str
+                ) -> Dict[str, Tuple[str, Tuple[int, ...]]]:
+    """{key: (rvc_tpu's path, perm)} of a port network's parameters by their
+    torch shapes; family "synthesizer" or "discriminator"."""
+    if family == "discriminator":
+        return discriminator_layouts(shapes)
+    if family == "synthesizer":
+        return {k: synthesizer_layout(k, len(s)) for k, s in shapes.items()}
+    raise ValueError(f"no rvc_tpu layout for a {family!r}")
 
 
 def discriminator_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:

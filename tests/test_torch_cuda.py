@@ -341,7 +341,8 @@ def test_fused_realtime_block_matches_the_host(dev):
         got, ref = (vc.vc_model.inference(b, index_rate=0.0)[0] for vc in vcs)
         assert got.shape == ref.shape == (63 * 480,)        # return_length 63 frames
         assert np.corrcoef(got, ref)[0, 1] > 0.99
-    assert all(LAUNCHES[k] > launches[k] for k in LAUNCHES)
+    assert all(LAUNCHES[k] > launches[k]
+               for k in ("resblock_group", "resblock_chain", "rel_attention", "log_mel"))
 
 
 def test_pool_matches_single_streams_on_the_card(dev):
@@ -365,6 +366,118 @@ def test_pool_matches_single_streams_on_the_card(dev):
         for s in range(4):
             single, _, _ = singles[s].on_request(blocks[s], index_rate=0.0)
             np.testing.assert_allclose(pooled[s], single, rtol=0, atol=5e-3)
+
+
+# --- the partial-sum launch (tensor parallelism) ---------------------------
+# A rank of a model group of C // C_M on a process group of one: each step's
+# all-reduce passes the rank's own partial sum on, so the kernel's chain is
+# this rank's partial launches in a row, the residual and b2 in its epilogue
+# on index 0 only. `_rank_chain` is that arithmetic in plain PyTorch (on
+# index 0 it is `resblock_chain_partial_reference`, whose collectives pass
+# through too); the two are held at K1/K2's bars. K2's sharded shape at the
+# training's bucket (C = 256, C_M = 128, T = 432), K1's (C = 128, C_M = 64),
+# and C_M = C / 4. The sum over a real group: `chip_smoke.py`'s `tp_gloo`.
+
+
+def _rank_chain(x, w1, b1, w2, b2, k, dilations, slope, model, bf16_operands=False):
+    cur = x
+    for s, d in enumerate(dilations):
+        cur = KR.resblock_step_partial_reference(cur, w1[s], b1[s], w2[s], b2[s], k, d, slope,
+                                                 model.index == 0, bf16_operands)
+    return cur
+
+
+def _rank_group(x, weights, ks, dilations, slope, model, bf16_operands=False):
+    outs = []
+    for i, k in enumerate(ks):
+        w = weights[4 * i: 4 * i + 4]
+        if w[0].shape[-1] != x.shape[-1]:
+            outs.append(_rank_chain(x, *w, k, dilations[i], slope, model, bf16_operands))
+        else:
+            outs.append(KR.resblock_chain_reference(x, *w, k, dilations[i], slope,
+                                                    bf16_operands))
+    return sum(outs) / len(outs)
+
+
+@pytest.fixture
+def one_rank(dev, tmp_path):
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}", world_size=1,
+                            rank=0)
+    yield
+    dist.destroy_process_group()
+
+
+def _shard_weights(dev, g, C, CM, K):
+    return (0.01 * torch.randn((3, K, C, CM), device=dev, generator=g),
+            0.1 * torch.randn((3, CM), device=dev, generator=g),
+            0.01 * torch.randn((3, K, CM, C), device=dev, generator=g),
+            0.1 * torch.randn((3, C), device=dev, generator=g))
+
+
+@pytest.mark.parametrize("index", [0, 1])
+@pytest.mark.parametrize("C,CM,K,T", [(256, 128, 11, 432), (256, 128, 3, 97),
+                                      (256, 64, 7, 432), (128, 64, 11, 1001),
+                                      (128, 32, 7, 4320)])
+def test_resblock_chain_tp(dev, one_rank, C, CM, K, T, index):
+    from rvc_tpu_torch.parallel.mesh import Axis
+
+    g = _gen(dev, C * K + CM)
+    x = torch.randn((2, T, C), device=dev, generator=g)
+    ws = _shard_weights(dev, g, C, CM, K)
+    model = Axis(C // CM, index)
+    before = LAUNCHES["resblock_chain_tp"]
+    got = KR.resblock_chain_tp(x, *ws, K, (1, 3, 5), 0.1, model)
+    assert LAUNCHES["resblock_chain_tp"] == before + 3
+    _assert_bf16_kernel(got, _rank_chain, x, *ws, K, (1, 3, 5), 0.1, model)
+    if index == 0:
+        _assert_bf16_kernel(got, KR.resblock_chain_partial_reference, x, *ws, K, (1, 3, 5),
+                            0.1, model)
+
+
+@pytest.mark.parametrize("index", [0, 1])
+def test_resblock_group_tp(dev, one_rank, index):
+    """The 48 kHz model's C = 128 stage at n_model 2: the k = 3 chain whole
+    (K1's launches), k = 7 and 11 on the partial-sum launch."""
+    from rvc_tpu_torch.parallel.mesh import Axis
+
+    g = _gen(dev, 128 + index)
+    x = torch.randn((2, 4320, 128), device=dev, generator=g)
+    weights = _weights(dev, g, 128, 3) + _shard_weights(dev, g, 128, 64, 7) \
+        + _shard_weights(dev, g, 128, 64, 11)
+    ks, dil, model = (3, 7, 11), ((1, 3, 5),) * 3, Axis(2, index)
+    before = dict(LAUNCHES)
+    got = KR.resblock_group_tp(x, weights, ks, dil, 0.1, model)
+    assert LAUNCHES["resblock_group"] == before["resblock_group"] + 3
+    assert LAUNCHES["resblock_group_tp"] == before["resblock_group_tp"] + 6
+    _assert_bf16_kernel(got, _rank_group, x, weights, ks, dil, 0.1, model)
+    if index == 0:
+        _assert_bf16_kernel(got, KR.resblock_group_partial_reference, x, weights, ks, dil, 0.1,
+                            model)
+
+
+def test_resblock_chain_tp_gradients(dev, one_rank):
+    from rvc_tpu_torch.parallel.mesh import Axis
+
+    g = _gen(dev, 7)
+    x = torch.randn((2, 300, 256), device=dev, generator=g)
+    ws = _shard_weights(dev, g, 256, 128, 7)
+    got, ref, _ = _grads_both_ways(KR.resblock_chain_tp, KR.resblock_chain_partial_reference,
+                                   (x, *ws), lambda w: tuple(w), 7, (1, 3, 5), 0.1, Axis(2, 0))
+    for i, (a, b) in enumerate(zip(got, ref)):
+        assert _rel_l2(a, b) < 1e-5, f"input {i}: rel_l2 {_rel_l2(a, b):.3g}"
+
+
+def test_resblock_tp_rejects_other_shapes(dev, one_rank):
+    from rvc_tpu_torch.parallel.mesh import Axis
+
+    g = _gen(dev, 1)
+    for C, CM in ((64, 32), (256, 32), (128, 128)):
+        x = torch.randn((1, 50, C), device=dev, generator=g)
+        with pytest.raises(ValueError, match="partial launch takes"):
+            KR.resblock_chain_tp(x, *_shard_weights(dev, g, C, CM, 3), 3, (1, 3, 5), 0.1,
+                                 Axis(C // CM, 0))
 
 
 # --- training: K1-K3 under autograd ----------------------------------------

@@ -10,6 +10,7 @@ unless given `--device cpu`, and one TCP session through
 import asyncio
 import json
 import os
+import re
 import socket
 import struct
 import subprocess
@@ -241,19 +242,17 @@ def test_serve_tcp_subcommand(tmp_path):
     torch.manual_seed(3)
     cfg = get_config(32000, **V2_ARGS)
     model = export_pth(build_synthesizer(cfg).state_dict(), cfg, str(tmp_path / "m.pth"))
-    s = socket.socket()
-    s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-    s.close()
     env = dict(os.environ, RVC_TPU_MODELS_DIR=str(tmp_path / "models"), OMP_NUM_THREADS="2")
+    # port 0: the server binds a free port itself and prints it once it listens
     proc = subprocess.Popen(
         [sys.executable, "-m", "rvc_tpu_torch.cli", "serve", "--model_path", model,
-         "--protocol", "tcp", "--device", "cpu", "--port", str(port), "--chunk_size", "48"],
+         "--protocol", "tcp", "--device", "cpu", "--port", "0", "--chunk_size", "48"],
         cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     try:
         line = proc.stdout.readline()
-        assert line.startswith(f"serving tcp on 127.0.0.1:{port}"), (
-            line + proc.stderr.read() if proc.poll() is not None else line)
+        listening = re.match(r"serving tcp on 127\.0\.0\.1:(\d+) ", line)
+        assert listening, line + proc.stderr.read() if proc.poll() is not None else line
+        port = int(listening.group(1))
         clip = _clip48(5, seed=10)
         clip[: 3 * BLOCK] *= 4.0
         blocks = [clip[i * BLOCK: (i + 1) * BLOCK] for i in range(5)]

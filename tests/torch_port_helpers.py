@@ -166,3 +166,44 @@ def jax_draws(key, cfg, batch, nsf: bool = True) -> dict:
         upp = int(np.prod(cfg.model.upsample_rates))
         out["source_noise"] = t(np.asarray(jax.random.normal(r_dec, (B, seg * upp, 1))))
     return out
+
+
+def partial_chain_job(path: str) -> None:
+    """One rank of a model group spanning the process group: the plain
+    partial-sum chain (`resblock_chain_partial_reference`) and K1 stage
+    (`resblock_group_partial_reference`) from this rank's shards of the
+    job's whole weights, with the gradients of x, the shards and the whole
+    biases against the job's upstream gradient. Writes `path`.rank{r}."""
+    import torch.distributed as dist
+
+    from rvc_tpu_torch.ops.kernels.resblock import (resblock_chain_partial_reference,
+                                                     resblock_group_partial_reference)
+    from rvc_tpu_torch.parallel.mesh import Axis
+    from rvc_tpu_torch.parallel.tp import local_slice
+
+    job = torch.load(path, weights_only=False)
+    model = Axis(dist.get_world_size(), dist.get_rank())
+    x, grad = job["x"], job["grad"]
+    C = x.shape[-1]
+    cm = C // model.size
+    cols = slice(model.index * cm, (model.index + 1) * cm)
+    out = {}
+    for name, chains in (("chain", job["chain"]), ("group", job["group"])):
+        leaves = [x.clone().requires_grad_(True)]
+        weights = []
+        for (w1, b1, w2, b2), sharded in chains:
+            if sharded:
+                w1, w2 = w1[..., cols], w2[:, :, cols, :]
+            w = [t.clone().requires_grad_(True) for t in (w1, b1, w2, b2)]
+            leaves += w
+            weights += [w[0], local_slice(w[1], 1, model) if sharded else w[1], w[2], w[3]]
+        if name == "chain":
+            i = job["chain_index"]
+            y = resblock_chain_partial_reference(leaves[0], *weights, job["kernel_sizes"][i],
+                                                 job["dilations"][i], 0.1, model)
+        else:
+            y = resblock_group_partial_reference(leaves[0], tuple(weights), job["kernel_sizes"],
+                                                 job["dilations"], 0.1, model)
+        out[name] = (y.detach(), [g.detach() for g in torch.autograd.grad(
+            y, leaves, grad)])
+    torch.save(out, f"{path}.rank{model.index}")
