@@ -174,6 +174,23 @@ Phases, one JSON line each (a `kernel` line per kernel call):
   tools     model_information, convert, model_blender (the model with its
             own conversion at 0.5 is the conversion, bit for bit) and
             audio_analyzer on the train phase's `.pth` export
+  frontends (after tools, a line per part, each with the card's name and
+            power limit) download: a zip of the train phase's `voice.pth`
+            and the retrieval phase's index served by `http.server` on
+            127.0.0.1 and fetched by `tools.download.download_model` (the
+            extracted files' sha256 equal the originals'), a 2 s clip
+            converted on the card from the downloaded pair (seconds; corr
+            > 0.9999 against the original files); tts: `cli tts` in a
+            subprocess with `edge_tts` unimportable exits 2, then
+            `tools.tts.tts_and_convert` through a stub `edge_tts` (a seeded
+            chirp WAV) converts on the card ("edge_tts": "stub"); trace: the
+            main path's `RVC.infer` of the 13.5 s clip with RVC_TPU_TRACE=1
+            (the spans: count, mean ms) and two under `xprof_trace` (the
+            CUDA kernels it recorded; K1-K4's symbols must be among them);
+            packed: `resblock_group_packed` at the main path's C = 128, 64,
+            32 stage shapes, one run's launches, each call against its
+            plain version on its valid steps at K1's bars and timed as a
+            `kernel` line (ms, ms_queued, plain_ms, device_ms, bound)
 Then the `kernels` summary line (per kernel: the sums over its calls; the
 launches of each path's run beside the main path's, `staged_crepe`,
 `staged_rmvpe`, `postfx`, `mrf`, `refinegan` and `longform` among them;
@@ -181,8 +198,10 @@ launches of each path's run beside the main path's, `staged_crepe`,
 over the train phase's extraction and `train_step` per step;
 `longform_mesh` over its run, `ddp_gloo_rank0` / `ddp_gloo_rank1` over
 their 3 steps, `tp_gloo_rank0` / `tp_gloo_rank1` over theirs and
-`ddp_nccl` over its epoch; the `_tp` variants' lines from `tp_gloo`, their
-calls on rank 0 in one step),
+`ddp_nccl` over its epoch, `frontends_download` / `frontends_tts` /
+`frontends_trace` over one conversion each; the `_tp` variants' lines from
+`tp_gloo`, their calls on rank 0 in one step; K1-packed's from the
+`frontends` phase's packed part),
 the card line, and
 last {"ok": true, "device": {...}}. Any failed check raises: the exit code
 is non-zero and the last line is not printed. Without a CUDA device, or
@@ -198,6 +217,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -1211,7 +1231,8 @@ def phase_postfx(rvc, work: str) -> dict:
 VOCODERS = {"mrf": "MRF HiFi-GAN", "refinegan": "RefineGAN"}
 # plain torch decoders: K1/K2 are not reached, as in the reference
 VOCODER_LAUNCHES = {"resblock_group": 0, "resblock_chain": 0, "rel_attention": 6, "log_mel": 1,
-                    "resblock_group_tp": 0, "resblock_chain_tp": 0}
+                    "resblock_group_tp": 0, "resblock_chain_tp": 0,
+                    "resblock_group_packed": 0}
 
 
 def decoder_inputs(rvc, clip) -> tuple:
@@ -1444,7 +1465,8 @@ LONG_UTTS, LONG_S = 64, 60.0          # scripts/bench_longform.py's shape
 CHUNK_S, PAD_S, LONG_BATCH = 10.0, 1.0, 8
 AB_UTTS, AB_BATCHES = 16, (1, 8, 16)
 LONG_LAUNCHES = {"resblock_group": 27, "resblock_chain": 9, "rel_attention": 6, "log_mel": 1,
-                 "resblock_group_tp": 0, "resblock_chain_tp": 0}
+                 "resblock_group_tp": 0, "resblock_chain_tp": 0,
+                 "resblock_group_packed": 0}
 
 
 def synth_utterances(n: int, seconds: float, sr: int = 16000):
@@ -1587,7 +1609,8 @@ RT_GATE_DB = -90                      # the reference's default of 0 dB gates RM
 POOL_NS, POOL_STEPS = (1, 4, 16), 8
 TCP_BLOCKS = 10
 RT_LAUNCHES = {"resblock_group": 27, "resblock_chain": 9, "rel_attention": 6, "log_mel": 1,
-               "resblock_group_tp": 0, "resblock_chain_tp": 0}
+               "resblock_group_tp": 0, "resblock_chain_tp": 0,
+               "resblock_group_packed": 0}
 
 
 def rt_clip48(n_blocks: int, block: int, seed: int):
@@ -1937,7 +1960,8 @@ TRAIN_DESCENT_STEPS = 30                                  # warmup mode, one fix
 TRAIN_VOCODER_STEPS = 2
 TRAIN_PARITY_B = 2
 TRAIN_LAUNCHES = {"resblock_group": 27, "resblock_chain": 9, "rel_attention": 6, "log_mel": 0,
-                  "resblock_group_tp": 0, "resblock_chain_tp": 0}
+                  "resblock_group_tp": 0, "resblock_chain_tp": 0,
+                  "resblock_group_packed": 0}
 TRAIN_GRAD_BAR = 1e-5          # each Function's gradients against the plain autograd's
 TRAIN_DEVICE = "cuda"          # a CPU rehearsal sets "cpu" and shrinks TRAIN_CFG
 TRAIN_CFG = {}                 # get_config(48000, ...) overrides; none: full width
@@ -2489,7 +2513,8 @@ TP_RANKS, TP_STEPS = 2, 3          # mesh (1, 2): one model group, both ranks on
 # a rank's launches a step at full width, n_model 2: the C = 256 stage's chains
 # and the C = 128 stage's k = 7 / 11 on the partial-sum launch, K1 elsewhere
 TP_LAUNCHES = {"resblock_group": 21, "resblock_chain": 0, "rel_attention": 6, "log_mel": 0,
-               "resblock_group_tp": 6, "resblock_chain_tp": 9}
+               "resblock_group_tp": 6, "resblock_chain_tp": 9,
+               "resblock_group_packed": 0}
 TP_KERNELS = {
     "resblock_group_tp": dict(
         name="K1 resblock_group_tp", entry="rvc_resblock_step_partial",
@@ -2886,6 +2911,357 @@ def phase_tools(work: str) -> None:
         raise AssertionError(f"tools: blend {same}, info {info.get('sr')}, {analysis}")
 
 
+# ---------------------------------------------------------------------------
+# the front ends: download, tts, the span tracer, K1's packed-lane entry
+# ---------------------------------------------------------------------------
+
+TTS_TEXT = "The quick brown fox jumps over the lazy dog."
+TTS_VOICE = "en-US-AriaNeural"
+# the kernel symbols a traced main-path conversion must show (demangled, spaces dropped)
+TRACE_SYMBOLS = {"K1": ("resblock_step_kernel<128,128>", "resblock_step_kernel<64,64>",
+                        "resblock_step_kernel<32,32>"),
+                 "K2": ("resblock_step_kernel<256,256>",),
+                 "K3": ("rel_attn_split_kernel",),
+                 "K4": ("dft_mag_kernel", "mel_log_kernel")}
+PACKED = dict(name="K1 resblock_group_packed", module="resblock", entry="rvc_resblock_step",
+              source="rvc_tpu_torch/csrc/resblock.cu",
+              replaces="rvc_tpu/ops/pallas/resblock.py:451 resblock_group_packed",
+              peak=PEAK_BF16, **BF16_BAR)
+
+
+def sha256(path: str) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        while chunk := f.read(1 << 24):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+@contextlib.contextmanager
+def served(root: str):
+    """A `http.server` for `root` on 127.0.0.1 in a thread; yields its port."""
+    import http.server
+    import threading
+
+    class Quiet(http.server.SimpleHTTPRequestHandler):
+        def log_message(self, *args):
+            pass
+
+    server = http.server.ThreadingHTTPServer(("127.0.0.1", 0),
+                                             functools.partial(Quiet, directory=root))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield server.server_address[1]
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join()
+
+
+def counted(fn) -> tuple:
+    """fn()'s result and the kernel launches it made (counts zeroed before)."""
+    import torch
+
+    from rvc_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+
+    reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(LAUNCHES)
+
+
+def frontends_download(work: str, index_path: str, card: str) -> tuple:
+    """A zip of the train phase's `voice.pth` and the retrieval phase's index,
+    served on 127.0.0.1 and fetched by `download_model`: the extracted files'
+    sha256 against the originals', then a 2 s clip converted on the card from
+    the downloaded pair against the same conversion from the originals."""
+    import zipfile
+
+    import numpy as np
+
+    from rvc_tpu_torch.api import RVC
+    from rvc_tpu_torch.tools.download import download_model
+
+    pth = os.path.join(work, "logs", "voice", "voice.pth")
+    site, out_dir = os.path.join(work, "site"), os.path.join(work, "downloaded")
+    os.makedirs(site)
+    times = {}
+    t0 = time.perf_counter()
+    with zipfile.ZipFile(os.path.join(site, "voice.zip"), "w", zipfile.ZIP_STORED) as z:
+        z.write(pth, "voice.pth")
+        z.write(index_path, "voice.index")
+    times["zip_s"] = time.perf_counter() - t0
+    with served(site) as port:
+        t0 = time.perf_counter()
+        got = download_model(f"http://127.0.0.1:{port}/voice.zip", out_dir)
+        times["download_s"] = time.perf_counter() - t0
+    files = {"voice.pth": pth, "voice.index": index_path}
+    sums = {name: {"original": sha256(orig), "downloaded": sha256(os.path.join(out_dir, name))}
+            for name, orig in files.items()}
+    if got != os.path.join(out_dir, "voice.zip") or any(
+            v["original"] != v["downloaded"] for v in sums.values()):
+        raise AssertionError(f"download: returned {got}, sha256 {sums}")
+    t0 = time.perf_counter()
+    rvc = RVC(model_path=os.path.join(out_dir, "voice.pth"),
+              index_path=os.path.join(out_dir, "voice.index"), seed=SEED, device="cuda")
+    times["load_s"] = time.perf_counter() - t0
+    clip = test_clip(PARITY_S, SEED + 4)
+    rvc.infer(clip)                                              # warm
+    t0 = time.perf_counter()
+    out, launches = counted(lambda: rvc.infer(clip))
+    times["convert_s"] = time.perf_counter() - t0
+    ref = RVC(model_path=pth, index_path=index_path, seed=SEED, device="cuda").infer(clip)
+    corr = float(np.corrcoef(out, ref)[0, 1])
+    emit({"phase": "frontends", "part": "download", "card": card,
+          "zip_mb": os.path.getsize(os.path.join(site, "voice.zip")) / 1e6,
+          "files": {k: os.path.getsize(v) for k, v in files.items()}, "sha256_equal": True,
+          "times": times, "clip_s": PARITY_S, "samples": len(out),
+          "corr_vs_original_files": corr, "launches": launches})
+    if not (corr > 0.9999 and len(out) == len(ref) and np.isfinite(out).all()):
+        raise AssertionError(f"download: the downloaded pair converts at corr {corr}")
+    return rvc, launches
+
+
+def stub_edge_tts(seed: int):
+    """An `edge_tts` module whose `Communicate.save` writes a seeded 16 kHz
+    chirp WAV (the real package needs a network); `said` keeps its calls."""
+    import types
+
+    from rvc_tpu_torch.utils.audio import save_wav
+
+    mod = types.ModuleType("edge_tts")
+    mod.said = []
+
+    class Communicate:
+        def __init__(self, text, voice, rate="+0%"):
+            self.args = (text, voice, rate)
+
+        async def save(self, path):
+            mod.said.append(self.args)
+            save_wav(path, test_clip(PARITY_S, seed), 16000)
+
+    mod.Communicate = Communicate
+    return mod
+
+
+def frontends_tts(work: str, rvc, card: str) -> dict:
+    """`cli tts` in a subprocess with `edge_tts` unimportable exits 2; then
+    `tts_and_convert` through a stub `edge_tts` converts on the card."""
+    import numpy as np
+
+    from rvc_tpu_torch.tools.tts import tts_and_convert
+    from rvc_tpu_torch.utils.audio import load_audio
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    # `python -m rvc_tpu_torch.cli`, with edge_tts blocked whether or not it is installed
+    cmd = [sys.executable, "-c", "import runpy, sys; sys.modules['edge_tts'] = None; "
+           "runpy.run_module('rvc_tpu_torch.cli', run_name='__main__', alter_sys=True)",
+           "tts", "--tts_text", TTS_TEXT, "--model_path", os.path.join(work, "voice.pth"),
+           "--output_path", os.path.join(work, "never.wav")]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=300)
+    refusal = {"returncode": res.returncode, "stderr": res.stderr.strip()[-300:],
+               "seconds": time.perf_counter() - t0}
+    if res.returncode != 2 or "edge-tts is not installed" not in res.stderr:
+        raise AssertionError(f"tts without edge_tts: {refusal}")
+    stub = stub_edge_tts(SEED + 5)
+    saved = sys.modules.get("edge_tts")
+    sys.modules["edge_tts"] = stub
+    out_path, tts_wav = os.path.join(work, "tts_out.wav"), os.path.join(work, "tts_in.wav")
+    t0 = time.perf_counter()
+    got, launches = counted(lambda: tts_and_convert(rvc, TTS_TEXT, TTS_VOICE, out_path,
+                                                    rate=10, tts_wav=tts_wav))
+    seconds = time.perf_counter() - t0
+    if saved is None:
+        del sys.modules["edge_tts"]
+    else:
+        sys.modules["edge_tts"] = saved
+    audio = load_audio(out_path, rvc.cfg.data.sample_rate)
+    want = int(PARITY_S * rvc.cfg.data.sample_rate)
+    emit({"phase": "frontends", "part": "tts", "card": card, "edge_tts": "stub",
+          "refusal": refusal, "said": stub.said, "seconds": seconds, "samples": len(audio),
+          "peak": float(np.abs(audio).max()), "launches": launches})
+    if not (got == out_path and stub.said == [(TTS_TEXT, TTS_VOICE, "+10%")]
+            and abs(len(audio) - want) <= 1 and np.isfinite(audio).all()
+            and 0 < np.abs(audio).max() and all(launches[k] > 0 for k in KERNELS)):
+        raise AssertionError(f"tts: wrote {got}, said {stub.said}, {len(audio)} samples "
+                             f"(want {want}), launches {launches}")
+    return launches
+
+
+def trace_kernel_names(log_dir: str) -> list:
+    """The CUDA kernel names in the Chrome trace `xprof_trace` wrote (spaces dropped)."""
+    (name,) = [f for f in os.listdir(log_dir) if f.endswith(".json")]
+    with open(os.path.join(log_dir, name)) as f:
+        events = json.load(f)["traceEvents"]
+    names = set()
+    for e in events:
+        if str(e.get("cat", "")).lower() == "kernel":
+            key = re.sub(r"^void\s+", "", e["name"].replace("(anonymous namespace)::", ""))
+            names.add(re.match(r"[^(]*", key).group(0).replace(" ", ""))
+    return sorted(names)
+
+
+def frontends_trace(work: str, card: str) -> tuple:
+    """The main path (the 48 kHz model at full width, seed 0) on the 13.5 s
+    clip: one `RVC.infer` with RVC_TPU_TRACE=1 (the span summary), two under
+    `xprof_trace` (the CUDA kernels it recorded: K1-K4's symbols must be
+    there). Returns the launches of the traced run and the K1 calls of the
+    warm run (for the packed part)."""
+    import torch
+
+    from rvc_tpu_torch.api import RVC
+    from rvc_tpu_torch.configs import get_config
+    from rvc_tpu_torch.ops.kernels import record_calls
+    from rvc_tpu_torch.utils.profiling import global_tracer, xprof_trace
+
+    rvc = RVC(config=get_config(48000), seed=SEED, device="cuda")
+    clip = test_clip(CLIP_S, SEED)
+    with record_calls() as calls:
+        rvc.infer(clip)                                          # warm
+    tracer = global_tracer()
+    tracer.totals.clear()
+    tracer.counts.clear()
+    os.environ["RVC_TPU_TRACE"] = "1"
+    t0 = time.perf_counter()
+    _, launches = counted(lambda: rvc.infer(clip))
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    del os.environ["RVC_TPU_TRACE"]
+    spans = tracer.summary()
+    t0 = time.perf_counter()
+    with xprof_trace(os.path.join(work, "xprof")) as log_dir:
+        # two conversions: after earlier profiler sessions in the process the
+        # trace can miss the first kernels after its start (K4's, in PR 11's run 1)
+        for _ in range(2):
+            rvc.infer(clip)
+        torch.cuda.synchronize()
+    traced_s = time.perf_counter() - t0
+    names = trace_kernel_names(log_dir)
+    found = {k: [s for s in syms if any(n.startswith(s) for n in names)]
+             for k, syms in TRACE_SYMBOLS.items()}
+    emit({"phase": "frontends", "part": "trace", "card": card, "clip_s": CLIP_S,
+          "wall_ms": wall_ms, "spans": {k: {"count": v["count"], "mean_ms": v["mean_ms"]}
+                                        for k, v in spans.items()},
+          "launches": launches, "xprof_s": traced_s, "cuda_kernels": names,
+          "k1_k4_symbols": found})
+    want = {"host/highpass", "dispatch/fused_convert", "host/pad+upload", "dispatch/f0_program",
+            "dispatch/conv_program", "fetch/materialize", "host/post"}
+    missing = {k: sorted(set(TRACE_SYMBOLS[k]) - set(v)) for k, v in found.items()
+               if set(v) != set(TRACE_SYMBOLS[k])}
+    if set(spans) != want or missing:
+        raise AssertionError(f"trace: spans {sorted(spans)} (want {sorted(want)}), kernel "
+                             f"symbols missing {missing}")
+    k1 = [c for c in calls if c[0].__name__ == "resblock_group"]
+    del rvc, calls
+    return launches, k1
+
+
+def packed_args(call) -> tuple:
+    """A recorded K1 call's x (B, T, C) laid out as the packed (B, R, P * C),
+    with its weights: `resblock_group_packed`'s positional arguments."""
+    import torch
+
+    _, args, kwargs = call
+    a = inspect.signature(call[0]).bind(*args, **kwargs)
+    a.apply_defaults()
+    x = a.arguments["x"]
+    B, T, C = x.shape
+    P = 128 // C
+    rows = -(-T // P)
+    xp = torch.nn.functional.pad(x, (0, 0, 0, rows * P - T)).reshape(B, rows, P * C)
+    return (xp.contiguous(), a.arguments["weights"], a.arguments["kernel_sizes"],
+            a.arguments["dilations"], C, T, a.arguments["slope"])
+
+
+def frontends_packed(k1_calls: list, card: str) -> dict:
+    """`resblock_group_packed` at the main path's C = 128, 64, 32 stage
+    shapes: one run of the three calls (its launches), then each call held
+    against its plain version on its T valid steps at K1's bars, and timed
+    as the `kernel` lines are. Returns the kernels line's entry."""
+    import torch
+
+    from rvc_tpu_torch.ops.kernels.resblock import (resblock_group_packed,
+                                                    resblock_group_packed_reference)
+
+    calls = [packed_args(c) for c in k1_calls]
+    _, launches = counted(lambda: [resblock_group_packed(*a) for a in calls])
+    if launches["resblock_group_packed"] != 9 * len(calls) or launches["resblock_group"]:
+        raise AssertionError(f"packed: {len(calls)} calls launched {launches}")
+    fn, plain, spec = resblock_group_packed, resblock_group_packed_reference, PACKED
+    lines, total = [], dict(flop=0, bytes=0, ms=0.0, ms_queued=0.0, plain_ms=0.0,
+                            plain_ms_queued=0.0, max_abs_err=0.0, emu_rel_l2=0.0)
+    device = {}
+    with torch.inference_mode():
+        for args in calls:
+            xp, weights, ks, ds, C, T, _ = args
+
+            def valid(t, C=C, T=T):
+                return t.reshape(t.shape[0], -1, C)[:, :T]
+
+            def plain_valid(*a, **k):
+                return valid(plain(*a, **k))
+
+            got, ref = fn(*args), plain(*args)
+            what = f"resblock_group_packed C={C} {list(xp.shape)}"
+            if valid(got).shape != (xp.shape[0], T, C) or got.shape != xp.shape \
+                    or bool(got.reshape(xp.shape[0], -1, C)[:, T:].any()):
+                raise AssertionError(f"{what}: output {tuple(got.shape)} not the input's layout")
+            cmp = compare(valid(got), valid(ref), spec["atol"], spec["rtol"], what,
+                          spec["min_corr"])
+            cmp.update(check_emulation(valid(got), plain_valid, args, {}, valid(xp),
+                                       spec["emu_rel_l2"], what))
+            del got, ref
+            flop, _ = work("resblock_group", {"x": valid(xp), "weights": weights,
+                                              "kernel_sizes": ks, "dilations": ds})
+            nbytes = 4 * (2 * xp.numel() + sum(w.numel() for w in weights))
+            line = {"inputs": {"x": list(xp.shape), "channels": C, "t_valid": T}, **cmp,
+                    "ms": cuda_ms(lambda: fn(*args)),
+                    "ms_queued": cuda_ms(lambda: fn(*args), calls=KERNEL_CALLS),
+                    "plain_ms": cuda_ms(lambda: plain(*args)),
+                    "plain_ms_queued": cuda_ms(lambda: plain(*args), calls=KERNEL_CALLS),
+                    "device_ms": device_kernel_ms(lambda: fn(*args))}
+            line["bound_ms"], line["bound_by"] = bound(flop, nbytes, spec["peak"])
+            lines.append(line)
+            total["flop"] += flop
+            total["bytes"] += nbytes
+            for k in ("ms", "ms_queued", "plain_ms", "plain_ms_queued"):
+                total[k] += line[k]
+            total["max_abs_err"] = max(total["max_abs_err"], cmp["max_abs"])
+            total["emu_rel_l2"] = max(total["emu_rel_l2"], cmp["emu_rel_l2"])
+            for k, t in line["device_ms"].items():
+                device[k] = device.get(k, 0.0) + t
+    emit({"phase": "frontends", "part": "packed", "card": card, "calls": lines,
+          "launches": launches, "bound": bound_text(spec["peak"])})
+    bound_ms, bound_by = bound(total.pop("flop"), total.pop("bytes"), spec["peak"])
+    return dict(name=spec["name"], route="cuda", source=spec["source"], entry=spec["entry"],
+                replaces=spec["replaces"], launches=launches["resblock_group_packed"],
+                calls=len(calls), max_abs_err=total["max_abs_err"], ms=total["ms"],
+                ms_queued=total["ms_queued"], device_ms=device, plain_ms=total["plain_ms"],
+                plain_ms_queued=total["plain_ms_queued"], bound_ms=bound_ms,
+                bound_by=bound_by, bound=bound_text(spec["peak"]), library_ms=None,
+                emu_rel_l2=total["emu_rel_l2"],
+                launches_by_path={"frontends_packed": launches["resblock_group_packed"]})
+
+
+def phase_frontends(work: str, index_path: str) -> tuple:
+    """download, tts, trace and packed (each raises on a failure). Returns
+    the launches of their conversions by path and K1-packed's kernels entry."""
+    card = card_line()
+    t0 = time.perf_counter()
+    rvc, download_launches = frontends_download(work, index_path, card)
+    tts_launches = frontends_tts(work, rvc, card)
+    del rvc
+    trace_launches, k1_calls = frontends_trace(work, card)
+    packed = frontends_packed(k1_calls, card)
+    emit({"phase": "frontends", "part": "done", "card": card,
+          "seconds": time.perf_counter() - t0})
+    return {"frontends_download": download_launches, "frontends_tts": tts_launches,
+            "frontends_trace": trace_launches}, packed
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2958,7 +3334,9 @@ def main() -> int:
     if not corr > 0.99:
         raise AssertionError(f"GPU vs CPU waveform corr {corr}")
 
-    # the model's files (.pth, .index) live in the git-ignored build directory
+    # the model's files (.pth, .index) live in the git-ignored build directory;
+    # the retrieval phase's index is kept for the frontends phase
+    kept = tempfile.TemporaryDirectory(dir=build.BUILD_DIR)
     with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as work:
         index_path, retrieval_launches = phase_retrieval(rvc, work)
         f0less_launches = phase_f0less(index_path, work)
@@ -2966,11 +3344,12 @@ def main() -> int:
         postfx_launches = phase_postfx(rvc, work)
         vocoder_launches = phase_vocoders(work)
         realtime_launches = phase_realtime(rvc, cpu_rvc, index_path)
+        index_path = shutil.move(index_path, kept.name)
     del cpu_rvc
     longform_launches = phase_longform(rvc)
     mesh_launches = phase_longform_mesh(rvc)
     del rvc
-    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as work:
+    with kept, tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as work:
         train_launches = phase_train(work)
         ddp_launches, single = phase_ddp_gloo(work)
         tp_launches, tp_summary = phase_tp_gloo(work, single)
@@ -2978,6 +3357,7 @@ def main() -> int:
         nccl_launches = phase_ddp_nccl(work)
         phase_tp_nccl(work)
         phase_tools(work)
+        frontend_launches, packed_summary = phase_frontends(work, index_path)
     for entry, name in zip(summary, KERNELS):
         entry["launches_by_path"] = {"pipeline": launches[name],
                                      "retrieval": retrieval_launches[name],
@@ -2991,8 +3371,9 @@ def main() -> int:
                                      **{k: v[name] for k, v in mesh_launches.items()},
                                      **{k: v[name] for k, v in ddp_launches.items()},
                                      **{k: v[name] for k, v in tp_launches.items()},
-                                     **{k: v[name] for k, v in nccl_launches.items()}}
-    summary += tp_summary
+                                     **{k: v[name] for k, v in nccl_launches.items()},
+                                     **{k: v[name] for k, v in frontend_launches.items()}}
+    summary += tp_summary + [packed_summary]
 
     emit({"kernels": summary})
     print(card, flush=True)

@@ -114,6 +114,8 @@ class RVC:
     A path that is given but missing raises FileNotFoundError.
     device: None runs on the card (and raises when there is none); pass
     "cpu" to run the kernels' plain PyTorch versions on the host.
+    source_noise: the NSF source's noise on (True) or off (False); None
+    leaves it to RVC_TPU_SOURCE_NOISE at each conversion ("0" turns it off).
     synthesizer_state / hubert_state / rmvpe_state: port state dicts in
     place of the checkpoints, loaded with strict=True.
     """
@@ -122,7 +124,7 @@ class RVC:
                  hubert_path: Optional[str] = None, index_path: Optional[str] = None,
                  seed: int = 0, embedder_model: str = "contentvec",
                  embedder_model_custom: Optional[str] = None, *, device=None,
-                 source_noise: bool = True, synthesizer_state: Optional[Mapping] = None,
+                 source_noise: Optional[bool] = None, synthesizer_state: Optional[Mapping] = None,
                  hubert_state: Optional[Mapping] = None,
                  rmvpe_state: Optional[Mapping] = None):
         self.device = resolve_device(device)

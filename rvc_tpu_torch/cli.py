@@ -1,8 +1,8 @@
 """Command line of the port (counterpart of `rvc_tpu/cli.py`): the `infer`,
-`batch_infer`, `serve`, `preprocess`, `extract`, `train`, `index`,
-`audio_analyzer`, `convert`, `model_information`, `model_blender` and
-`tensorboard` subcommands, with the reference's flag names and defaults,
-plus `--device`.
+`batch_infer`, `tts`, `serve`, `preprocess`, `extract`, `train`, `index`,
+`audio_analyzer`, `convert`, `model_information`, `model_blender`,
+`tensorboard`, `download` and `prerequisites` subcommands, with the
+reference's flag names and defaults, plus `--device`.
 
     python -m rvc_tpu_torch.cli infer --input_path in.wav --output_path out.wav \\
         --model_path model.pth --index_path model.index
@@ -49,6 +49,18 @@ are host tools (`tools/model_tools.py`, `tools/plot_logs.py`): a model's
 metadata, a blend of two models, an upstream `.pth` as `.safetensors`, an
 audio file's levels and spectrum, and the training curves (tensorboard
 where it is installed, else PNG plots of the JSONL logs).
+
+    python -m rvc_tpu_torch.cli tts --tts_text "Hello" --output_path out.wav \\
+        --model_path model.pth
+    python -m rvc_tpu_torch.cli download --model_link https://huggingface.co/.../model.zip
+    python -m rvc_tpu_torch.cli prerequisites --pretraineds_hifigan
+
+need a network: `tts` speaks the text (or `--tts_file`) with an Edge voice
+through the `edge_tts` package, then converts it as `infer` does (exit 2
+without `edge_tts`); `download` fetches a voice model (Hugging Face, Google
+Drive or a direct link; zips extracted) into `--output_dir`;
+`prerequisites` fetches the predictors, embedders and pretrains into
+`models/` (`tools/tts.py`, `tools/download.py`).
 """
 
 from __future__ import annotations
@@ -174,6 +186,31 @@ def cmd_batch_infer(args: argparse.Namespace) -> None:
         out = rvc.infer_file(os.path.join(args.input_folder, f), out, **_infer_kwargs(args))
         print(f"wrote {out}")
     print(f"{len(files)} files converted")
+
+
+def cmd_tts(args: argparse.Namespace) -> None:
+    """Speak --tts_text (or --tts_file's text) with edge-tts into
+    --output_tts_path, then convert it into --output_path
+    (`rvc_tpu/cli.py:158-179`)."""
+    try:
+        import edge_tts  # noqa: F401
+    except ImportError:
+        print("edge-tts is not installed (network TTS frontend unavailable); "
+              "provide a wav with `infer` instead.", file=sys.stderr)
+        sys.exit(2)
+    text = args.tts_text
+    if args.tts_file:
+        with open(args.tts_file) as f:
+            text = f.read().strip()
+    if not text:
+        print("no TTS text: pass --tts_text or --tts_file", file=sys.stderr)
+        sys.exit(2)
+    from rvc_tpu_torch.tools.tts import synthesize
+
+    synthesize(text, args.tts_voice, args.tts_rate, args.output_tts_path)
+    out = _load_rvc(args).infer_file(args.output_tts_path, args.output_path,
+                                     **_infer_kwargs(args))
+    print(f"wrote {out}")
 
 
 def cmd_serve(args: argparse.Namespace) -> None:
@@ -415,11 +452,16 @@ def _train(args: argparse.Namespace, info: dict) -> None:
     final = trainer.export_inference_model(os.path.join(exp_dir, f"{args.model_name}.safetensors"))
     if main_rank:
         if args.index_algorithm:
+            # a failed index build (no features, say) must not lose the summary of a
+            # finished run: the trained model stands
             try:
                 cmd_index(args)
-            except SystemExit as e:  # no features: the trained model stands
-                print(f"warning: post-training index build failed ({e}); run `index` by "
-                      f"hand", file=sys.stderr)
+            except SystemExit as e:
+                print(f"warning: post-training index build failed (exit {e.code}); run "
+                      f"`rvc-tpu index` manually", file=sys.stderr)
+            except Exception as e:
+                print(f"warning: post-training index build failed ({e.__class__.__name__}: "
+                      f"{e}); run `rvc-tpu index` manually", file=sys.stderr)
     print(json.dumps({"epochs_run": result["epochs_run"], "best_loss": result["best_loss"],
                       "model": final if main_rank else None, "host": shard["host_id"],
                       "rank": dist.get_rank() if dist.is_initialized() else 0}))
@@ -436,10 +478,11 @@ def cmd_index(args: argparse.Namespace) -> None:
 
     exp_dir = os.path.join(args.logs_dir, args.model_name)
     feat_dir = os.path.join(exp_dir, "features")
-    feats = [np.load(os.path.join(feat_dir, f))
-             for f in sorted(os.listdir(feat_dir)) if f.endswith(".npy")]
+    names = sorted(os.listdir(feat_dir)) if os.path.isdir(feat_dir) else []
+    feats = [np.load(os.path.join(feat_dir, f)) for f in names if f.endswith(".npy")]
     if not feats:
-        raise SystemExit("no features found; run extract first")
+        print("no features found; run extract first", file=sys.stderr)
+        sys.exit(2)
     all_feats = np.concatenate(feats, axis=0)
     rng = np.random.default_rng(0)
     rng.shuffle(all_feats)
@@ -612,6 +655,20 @@ def cmd_model_blender(args: argparse.Namespace) -> None:
     print(f"wrote {blend_models(args.pth_path_1, args.pth_path_2, args.ratio, args.output_path)}")
 
 
+def cmd_download(args: argparse.Namespace) -> None:
+    from rvc_tpu_torch.tools.download import download_model
+
+    print(f"downloaded to {download_model(args.model_link, args.output_dir)}")
+
+
+def cmd_prerequisites(args: argparse.Namespace) -> None:
+    from rvc_tpu_torch.tools.download import download_prerequisites
+
+    download_prerequisites(pretraineds=args.pretraineds_hifigan, models=args.models,
+                           titan=args.titan, refinegan=args.refinegan,
+                           embedders=args.embedders)
+
+
 def _add_tool_args(sub) -> None:
     """The host tools: `rvc_tpu/cli.py:547-568, 717-723`'s flags and defaults."""
     p = sub.add_parser("audio_analyzer")
@@ -643,6 +700,25 @@ def _add_tool_args(sub) -> None:
     p.add_argument("--out_path", default=None)
     p.set_defaults(fn=cmd_tensorboard)
 
+    p = sub.add_parser("download")
+    p.add_argument("--model_link", required=True)
+    p.add_argument("--output_dir", default="models")
+    p.set_defaults(fn=cmd_download)
+
+    p = sub.add_parser("prerequisites")
+    p.add_argument("--pretraineds_hifigan", action="store_true")
+    p.add_argument("--models", action="store_true", default=True)
+    p.add_argument("--titan", action="store_true",
+                   help="TITAN community pretrains (reference --titan)")
+    p.add_argument("--refinegan", action="store_true",
+                   help="RefineGAN pretrains")
+    p.add_argument("--embedders", action="store_true",
+                   help="language-specialized HuBERT embedders")
+    p.add_argument("--exe", action="store_true",
+                   help="accepted for the reference CLI's sake and ignored (Windows ffmpeg "
+                        "executables)")
+    p.set_defaults(fn=cmd_prerequisites)
+
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser("rvc-tpu-torch", description=__doc__,
@@ -662,6 +738,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--input_folder", required=True)
     p.add_argument("--output_folder", required=True)
     p.set_defaults(fn=cmd_batch_infer)
+
+    p = sub.add_parser("tts")
+    _add_infer_args(p)
+    for a in p._actions:
+        if a.dest == "input_path":
+            a.required = False
+    p.add_argument("--tts_text", default=None)
+    p.add_argument("--tts_file", default=None,
+                   help="read the text to synthesize from a file")
+    p.add_argument("--tts_voice", default="en-US-AriaNeural")
+    p.add_argument("--tts_rate", type=int, default=0)
+    p.add_argument("--output_tts_path", default="tts_output.wav")
+    p.set_defaults(fn=cmd_tts, input_path=None)
 
     p = sub.add_parser("serve", help="realtime conversion server (ws-audio or TCP protocol)")
     _add_serve_args(p)

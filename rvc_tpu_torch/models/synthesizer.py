@@ -15,6 +15,7 @@ model without it.
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -29,6 +30,15 @@ from rvc_tpu_torch.models.generators_extra import HiFiGANMRFGenerator, RefineGAN
 from rvc_tpu_torch.ops.commons import draw, rand_slice_segments, slice_segments
 
 SOURCE_NOISE_SEED = 0x5EED
+
+
+def source_noise_on(setting: Optional[bool] = None) -> bool:
+    """Whether inference draws the NSF source's noise: `setting` where it is
+    given, else RVC_TPU_SOURCE_NOISE read now ("0" turns the noise off, for
+    noise-free comparisons), as the reference's `source_noise_rng` reads it."""
+    if setting is not None:
+        return setting
+    return os.environ.get("RVC_TPU_SOURCE_NOISE", "1") != "0"
 
 
 class TrainOutputs(NamedTuple):

@@ -7,6 +7,7 @@
 | K4     | melspec.log_mel                     | csrc/melspec.cu      | rvc_tpu/ops/pallas/melspec.py : pallas_log_mel          |
 | K1 TP  | resblock.resblock_group_tp          | csrc/resblock.cu     | K1's partial-sum launch on a tensor-parallel rank       |
 | K2 TP  | resblock.resblock_chain_tp          | csrc/resblock.cu     | K2's partial-sum launch on a tensor-parallel rank       |
+| K1 pk  | resblock.resblock_group_packed      | csrc/resblock.cu     | rvc_tpu/ops/pallas/resblock.py : resblock_group_packed  |
 
 Each wrapper `<name>` has a plain PyTorch version `<name>_reference` with
 the same signature, which it runs for CPU tensors (the `_tp` wrappers:
@@ -21,11 +22,12 @@ made can be replayed and timed one by one (detached copies: a recording
 holds no autograd graph).
 
 In training K1-K3 run under `torch.autograd.Function`s (`ChainFunction`,
-`GroupFunction`, `RelAttentionFunction`): the forward is the kernel, the
-backward float32 autograd of the plain version re-run from the saved
-inputs (`plain_vjp`), as the reference's `custom_vjp`s take XLA's autodiff
-of the plain chain (`rvc_tpu/ops/pallas/resblock.py:_chain_bwd`,
-`_group_bwd`; `attention.py:_bwd`). The JAX package has no backward
+`GroupFunction`, `RelAttentionFunction`; K1's packed entry
+`GroupPackedFunction`): the forward is the kernel, the backward float32
+autograd of the plain version re-run from the saved inputs (`plain_vjp`),
+as the reference's `custom_vjp`s take XLA's autodiff of the plain chain
+(`rvc_tpu/ops/pallas/resblock.py:_chain_bwd`, `_group_bwd`,
+`_group_packed_bwd`; `attention.py:_bwd`). The JAX package has no backward
 kernel, so neither has the port.
 """
 
@@ -39,7 +41,8 @@ from typing import Callable, Iterator, List, Optional, Sequence
 import torch
 
 LAUNCHES = {"resblock_group": 0, "resblock_chain": 0, "rel_attention": 0,
-            "log_mel": 0, "resblock_group_tp": 0, "resblock_chain_tp": 0}
+            "log_mel": 0, "resblock_group_tp": 0, "resblock_chain_tp": 0,
+            "resblock_group_packed": 0}
 
 _recording: Optional[List[tuple]] = None
 _count_lock = threading.Lock()

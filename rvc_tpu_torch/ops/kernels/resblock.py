@@ -42,6 +42,16 @@ Their plain versions, `resblock_chain_partial_reference` and
 differentiable collectives (the residual and b2 added after the
 all-reduce, on every rank); the backward of the card's launches
 (`ChainTPFunction`, `GroupTPFunction`) re-runs them in float32.
+
+**The packed lane layout** (`resblock_group_packed`, the counterpart of
+`rvc_tpu/ops/pallas/resblock.py : resblock_group_packed`): a K1 stage whose
+x arrives as (B, R, P * C), P = 128 // C consecutive time steps in each
+row, with `t_valid` = T <= R * P true steps. It unfolds x to (B, R * P, C),
+runs K1 on the first T steps (the kernel's zero boundary is the
+reference's validity mask at `packed_t`), and folds the result back, with
+zeros past T. Its launches count apart (`resblock_group_packed`); its
+backward (`GroupPackedFunction`) unfolds, takes the plain stage's autograd
+and refolds, as the reference's `_group_packed_bwd`.
 """
 
 from __future__ import annotations
@@ -51,6 +61,7 @@ import functools
 from typing import Sequence
 
 import torch
+from torch.nn import functional as F
 
 from rvc_tpu_torch.ops import conv as conv_ops
 from rvc_tpu_torch.ops.kernels import build, count_launch, plain_vjp, recorded
@@ -59,6 +70,7 @@ from rvc_tpu_torch.parallel.tp import all_reduce_model, copy_to_model, reduce_fr
 
 CHANNELS = (32, 64, 128, 256)
 TP_SHAPES = ((128, 64), (128, 32), (256, 128), (256, 64))     # (C, C_M) of the partial launch
+LANES = 128                      # the packed layout's row: P = LANES // C time steps of C channels
 
 
 def _lrelu(x: torch.Tensor, slope: float) -> torch.Tensor:
@@ -151,6 +163,42 @@ def resblock_group_partial_reference(x, weights, kernel_sizes, dilations, slope:
     return sum(outs) / len(outs)
 
 
+def _check_packed(x: torch.Tensor, channels: int, t_valid: int) -> None:
+    """Raise unless x is packed (B, R, P * C) at C = channels in (128, 64,
+    32), P = 128 // C, holding 0 < t_valid <= R * P steps."""
+    if channels not in CHANNELS[:3]:
+        raise ValueError(f"resblock_group_packed: channels {channels} not in {CHANNELS[:3]}")
+    P = LANES // channels
+    if x.dim() != 3 or x.shape[2] != P * channels or not 0 < t_valid <= x.shape[1] * P:
+        raise ValueError(f"resblock_group_packed: want (B, R, {P * channels}) holding "
+                         f"{t_valid} <= R * {P} steps, got {tuple(x.shape)}")
+
+
+def _unfold(x: torch.Tensor, channels: int, t_valid: int) -> torch.Tensor:
+    """Packed (B, R, P * C) -> its first t_valid steps (B, t_valid, C)."""
+    return x.reshape(x.shape[0], -1, channels)[:, :t_valid]
+
+
+def _fold(y: torch.Tensor, rows: int) -> torch.Tensor:
+    """(B, T, C) -> packed (B, rows, P * C), zeros past T."""
+    B, T, C = y.shape
+    P = LANES // C
+    if rows * P > T:
+        y = F.pad(y, (0, 0, 0, rows * P - T))
+    return y.reshape(B, rows, P * C)
+
+
+def resblock_group_packed_reference(x, weights, kernel_sizes, dilations, channels: int,
+                                    t_valid: int, slope: float = 0.1,
+                                    bf16_operands: bool = False):
+    """Plain version of `resblock_group_packed`: `resblock_group_reference`
+    on the unfolded first t_valid steps, folded back."""
+    _check_packed(x, channels, t_valid)
+    y = resblock_group_reference(_unfold(x, channels, t_valid), weights, kernel_sizes,
+                                 dilations, slope, bf16_operands)
+    return _fold(y, x.shape[1])
+
+
 def kernel_weights(w: torch.Tensor) -> torch.Tensor:
     """(S, K, Cin, Cout) float32 -> (S, Cout, K, Cin) bf16, contiguous: per
     step, row n holds every tap's Cin weights of output channel n, the
@@ -232,17 +280,30 @@ def _launch_chain(x, w1, b1, w2, b2, kernel_size: int, dilations: Sequence[int],
 
 
 def _launch_group(x, weights, kernel_sizes: Sequence[int],
-                  dilations: Sequence[Sequence[int]], slope: float) -> torch.Tensor:
-    """K1's launches on CUDA tensors (the forward of `GroupFunction`)."""
-    _check(x, weights, "resblock_group")
+                  dilations: Sequence[Sequence[int]], slope: float,
+                  counter: str = "resblock_group") -> torch.Tensor:
+    """K1's launches on CUDA tensors (the forward of `GroupFunction`),
+    counted under `counter`."""
+    _check(x, weights, counter)
     x = _aligned(x)
     out = torch.empty_like(x)
     n = len(kernel_sizes)
     for i, k in enumerate(kernel_sizes):
         _run_chain(x, *weights[4 * i: 4 * i + 4], kernel_size=k,
                    dilations=dilations[i], slope=slope, out=out, alpha=1.0 / n,
-                   beta=0.0 if i == 0 else 1.0, counter="resblock_group")
+                   beta=0.0 if i == 0 else 1.0, counter=counter)
     return out
+
+
+def _launch_group_packed(x, weights, kernel_sizes: Sequence[int],
+                         dilations: Sequence[Sequence[int]], channels: int, t_valid: int,
+                         slope: float) -> torch.Tensor:
+    """K1's launches on the unfolded packed x, folded back (the forward of
+    `GroupPackedFunction`)."""
+    _check_packed(x, channels, t_valid)
+    y = _launch_group(_unfold(x, channels, t_valid), weights, kernel_sizes, dilations, slope,
+                      counter="resblock_group_packed")
+    return _fold(y, x.shape[1])
 
 
 def _run_chain_tp(x, w1, b1, w2, b2, kernel_size, dilations, slope, model: Axis,
@@ -350,6 +411,27 @@ class GroupFunction(torch.autograd.Function):
         return (None,) * 4 + grads
 
 
+class GroupPackedFunction(torch.autograd.Function):
+    """K1 on the packed layout under autograd: `forward` (the launches; any
+    callable with `resblock_group_packed_reference`'s signature) computes
+    the output; the backward unfolds, takes the float32 plain stage's
+    autograd and refolds (`resblock_group_packed_reference`'s autograd)."""
+
+    @staticmethod
+    def forward(ctx, forward, kernel_sizes, dilations, channels, t_valid, slope, x, *weights):
+        ctx.save_for_backward(x, *weights)
+        ctx.args = (kernel_sizes, dilations, channels, t_valid, slope)
+        return forward(x, weights, kernel_sizes, dilations, channels, t_valid, slope)
+
+    @staticmethod
+    def backward(ctx, grad):
+        ks, ds, c, t, slope = ctx.args
+        grads = plain_vjp(
+            lambda x, *w: resblock_group_packed_reference(x, w, ks, ds, c, t, slope),
+            ctx.saved_tensors, ctx.needs_input_grad[6:], grad)
+        return (None,) * 6 + grads
+
+
 @recorded
 def resblock_chain(x: torch.Tensor, w1, b1, w2, b2, kernel_size: int,
                    dilations: Sequence[int] = (1, 3, 5),
@@ -437,3 +519,18 @@ def resblock_group_tp(x: torch.Tensor, weights: tuple, kernel_sizes: Sequence[in
                                                 model)
     return GroupTPFunction.apply(_launch_group_tp, tuple(kernel_sizes),
                                  tuple(tuple(d) for d in dilations), slope, model, x, *weights)
+
+
+@recorded
+def resblock_group_packed(x: torch.Tensor, weights: tuple, kernel_sizes: Sequence[int],
+                          dilations: Sequence[Sequence[int]], channels: int, t_valid: int,
+                          slope: float = 0.1) -> torch.Tensor:
+    """K1 on the packed lane layout: x (B, R, P * C) float32, P = 128 // C,
+    C = channels in (128, 64, 32), its first t_valid <= R * P steps valid
+    (see the module's docstring); returns the same layout."""
+    if x.device.type == "cpu":
+        return resblock_group_packed_reference(x, weights, kernel_sizes, dilations, channels,
+                                               t_valid, slope)
+    return GroupPackedFunction.apply(_launch_group_packed, tuple(kernel_sizes),
+                                     tuple(tuple(d) for d in dilations), channels, t_valid,
+                                     slope, x, *weights)

@@ -19,6 +19,14 @@ trimmed on the host; f0-less models take it without pitch. The TPU
 dispatch machinery (packing, frozen weights, f16 transfers, async fetch,
 chunk batching) is not ported; batches of equal-length utterances convert
 through `parallel.infer.BatchConverter`, which reuses this module's pieces.
+
+With RVC_TPU_TRACE=1 the stages are timed on the host clock under the
+reference's span names (`utils.profiling.trace_span`): host/highpass,
+dispatch/fused_convert around each fused chunk, and inside it
+host/pad+upload, dispatch/f0_program, dispatch/conv_program and
+fetch/materialize (the chunk's read-back); host/get_f0 for each staged
+chunk with pitch; host/post around the RMS envelope and the peak
+normalisation.
 """
 
 from __future__ import annotations
@@ -32,11 +40,12 @@ from torch.nn import functional as F
 
 from rvc_tpu_torch.configs import PipelineConfig
 from rvc_tpu_torch.models.rmvpe import RMVPE, decode_salience
-from rvc_tpu_torch.models.synthesizer import SOURCE_NOISE_SEED
+from rvc_tpu_torch.models.synthesizer import SOURCE_NOISE_SEED, source_noise_on
 from rvc_tpu_torch.pitch import PitchExtractor, autotune_f0
 from rvc_tpu_torch.pitch.autotune import NOTE_TABLE
 from rvc_tpu_torch.retrieval.ivf import IVFFlatIndex, index_blend
 from rvc_tpu_torch.utils import audio as audio_utils
+from rvc_tpu_torch.utils.profiling import trace_span
 
 SAMPLE_RATE = 16000
 WINDOW = 160
@@ -104,14 +113,17 @@ class Pipeline:
     `models.hubert.HubertModel`; rmvpe: `models.rmvpe.E2E`, which RMVPE
     pitch takes on both paths. pitch_extractor: the staged path's
     `PitchExtractor`, made anew (on the pipeline's device) when a chunk
-    asks for another method or CREPE hop. With source_noise the NSF source
-    noise comes from a generator seeded 0x5EED on the device for each chunk
-    (the reference's fixed key; torch draws other numbers); without it the
-    source is noise-free.
+    asks for another method or CREPE hop. With source noise on the NSF
+    source noise comes from a generator seeded 0x5EED on the device for
+    each chunk (the reference's fixed key; torch draws other numbers); off,
+    the source is noise-free. source_noise True or False decides; None (the
+    default) leaves it to RVC_TPU_SOURCE_NOISE at each call
+    (`models.synthesizer.source_noise_on`).
     """
 
     def __init__(self, tgt_sr: int, synthesizer, hubert, rmvpe,
-                 config: Optional[PipelineConfig] = None, source_noise: bool = True,
+                 config: Optional[PipelineConfig] = None,
+                 source_noise: Optional[bool] = None,
                  pitch_extractor: Optional[PitchExtractor] = None):
         self.tgt_sr = tgt_sr
         self.config = config or PipelineConfig()
@@ -201,7 +213,7 @@ class Pipeline:
         feats_up = upsample_protect(feats, feats_raw, pitchf,
                                     protect if pitchf is not None else 1.0)
         generator = None
-        if self.source_noise and pitchf is not None:
+        if pitchf is not None and source_noise_on(self.source_noise):
             generator = torch.Generator(device=self.device)
             generator.manual_seed(SOURCE_NOISE_SEED)
         wave, _ = self.synthesizer.infer(feats_up, lengths, pitch, pitchf, sids,
@@ -242,13 +254,17 @@ class Pipeline:
                       index_rate: float = 0.0) -> np.ndarray:
         """One padded 16 kHz chunk -> its waveform at the target rate, with
         trim_frames 10 ms frames of context dropped from each end."""
-        audio = self._upload(audio0)
+        with trace_span("host/pad+upload"):
+            audio = self._upload(audio0)
         p_len = len(audio0) // self.window
-        f0 = self.f0(audio, pitch_shift, autotune_strength)
-        wave = self._convert(audio, f0, sid, p_len, protect, index, index_rate)
+        with trace_span("dispatch/f0_program"):
+            f0 = self.f0(audio, pitch_shift, autotune_strength)
+        with trace_span("dispatch/conv_program"):
+            wave = self._convert(audio, f0, sid, p_len, protect, index, index_rate)
         spf = self.tgt_sr // 100
         wave = wave[:, trim_frames * spf: wave.shape[1] - trim_frames * spf]
-        out = wave[0].float().cpu().numpy()
+        with trace_span("fetch/materialize"):
+            out = wave[0].float().cpu().numpy()
         return out[: max(p_len - 2 * trim_frames, 0) * spf]
 
     @torch.inference_mode()
@@ -326,8 +342,9 @@ class Pipeline:
         if use_f0 and not pitch_guidance:
             raise ValueError("pitch_guidance=False needs an f0-less model: an f0 model's "
                              "NSF decoder needs pitch")
-        audio = audio_utils.highpass_filter(np.asarray(audio, dtype=np.float32),
-                                            SAMPLE_RATE, 48.0, 5)
+        with trace_span("host/highpass"):
+            audio = audio_utils.highpass_filter(np.asarray(audio, dtype=np.float32),
+                                                SAMPLE_RATE, 48.0, 5)
         t_pad = self.t_pad
         audio_pad = np.pad(audio, (t_pad, t_pad), mode="reflect")
         # the user's f0 curve, padded once to the padded audio's frame grid so
@@ -343,24 +360,27 @@ class Pipeline:
         for s, e in self.chunk_bounds(audio):
             chunk = audio_pad[s: e + 2 * t_pad]
             if fused:
-                out_chunks.append(self.convert_chunk(
-                    chunk, sid, pitch_shift, f0_autotune_strength if f0_autotune else 0.0,
-                    protect, trim_frames=t_pad // self.window, index=index,
-                    index_rate=index_rate))
+                with trace_span("dispatch/fused_convert"):
+                    out_chunks.append(self.convert_chunk(
+                        chunk, sid, pitch_shift, f0_autotune_strength if f0_autotune else 0.0,
+                        protect, trim_frames=t_pad // self.window, index=index,
+                        index_rate=index_rate))
                 continue
             pitch = pitchf = None
             if use_f0:
                 chunk_f0 = None
                 if input_f0_pad is not None:
                     chunk_f0 = input_f0_pad[s // self.window: (e + 2 * t_pad) // self.window]
-                pitch, pitchf = self.get_f0(
-                    chunk, len(chunk) // self.window, f0_method, pitch_shift, f0_autotune,
-                    f0_autotune_strength, chunk_f0, proposed_pitch, proposed_pitch_threshold,
-                    f0_hop_length)
+                with trace_span("host/get_f0"):
+                    pitch, pitchf = self.get_f0(
+                        chunk, len(chunk) // self.window, f0_method, pitch_shift, f0_autotune,
+                        f0_autotune_strength, chunk_f0, proposed_pitch,
+                        proposed_pitch_threshold, f0_hop_length)
             conv = self.voice_conversion(chunk, pitch, pitchf, sid, index, index_rate, protect)
             out_chunks.append(conv[pad_tgt:-pad_tgt] if pad_tgt else conv)
         out = np.concatenate(out_chunks)
-        if volume_envelope != 1:
-            out = audio_utils.change_rms(audio, SAMPLE_RATE, out, self.tgt_sr,
-                                         volume_envelope)
-        return audio_utils.peak_normalize(out, 0.99)
+        with trace_span("host/post"):
+            if volume_envelope != 1:
+                out = audio_utils.change_rms(audio, SAMPLE_RATE, out, self.tgt_sr,
+                                             volume_envelope)
+            return audio_utils.peak_normalize(out, 0.99)

@@ -41,7 +41,7 @@ def converters():
                                  hubert_variables={"params": h_params}))
     ref = JaxBatchConverter(jax_rvc, make_mesh(n_data=1, n_model=1))
     ref._rmvpe = SimpleNamespace(model=jax_r, variables=r_vars)
-    port_rvc = SimpleNamespace(pipeline=Pipeline(SR, port_s, port_h, port_r, source_noise=False),
+    port_rvc = SimpleNamespace(pipeline=Pipeline(SR, port_s, port_h, port_r),
                                cfg=cfg, device=torch.device("cpu"))
     return ref, BatchConverter(port_rvc)
 

@@ -6,6 +6,9 @@ but takes HuBERT's 768-wide
 features, as upstream v2 models do; HuBERT and RMVPE are the seeded random
 full-size modules that `RVC` builds when no checkpoint is found."""
 
+import argparse
+import json
+
 import numpy as np
 import pytest
 
@@ -144,3 +147,101 @@ def test_default_device_is_the_card(files, tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         main(["infer", "--input_path", str(files / "in" / "a.wav"), "--output_path",
               str(tmp_path / "o.wav"), "--model_path", str(files / "model.pth")])
+
+
+@pytest.mark.parametrize("features", ["missing", "empty"])
+def test_index_without_features_exits_2(tmp_path, capsys, features):
+    """As `rvc_tpu/cli.py`'s `index`: the message on stderr and exit 2,
+    a missing features directory counting as an empty one."""
+    if features == "empty":
+        (tmp_path / "m" / "features").mkdir(parents=True)
+    with pytest.raises(SystemExit) as e:
+        main(["index", "--model_name", "m", "--logs_dir", str(tmp_path), "--device", "cpu"])
+    assert e.value.code == 2
+    assert "no features found; run extract first" in capsys.readouterr().err
+
+
+class _StubTrainer:
+    """`RVCTrainer` without the training: one epoch run, its export named."""
+
+    def __init__(self, *args, **kwargs):
+        pass
+
+    def train(self, total_epoch, save_every=None):
+        return {"epochs_run": total_epoch, "best_loss": 1.5}
+
+    def export_inference_model(self, path):
+        return path
+
+
+def _raise(exc):
+    def fn(args):
+        raise exc
+    return fn
+
+
+@pytest.mark.parametrize("failure,warning", [
+    ("FileNotFoundError", "(FileNotFoundError: no features dir)"),
+    ("SystemExit", "(exit 2)"),
+    ("no features", "(exit 2)"),
+])
+def test_train_summary_survives_a_failed_index(tmp_path, capsys, monkeypatch, failure, warning):
+    """`train --index_algorithm Auto` after a finished run: a failed index
+    build (an exception, a SystemExit, or the real `index` with no features
+    directory) prints the reference's warning, and the JSON summary line
+    still comes out."""
+    import rvc_tpu_torch.cli as cli
+    from rvc_tpu_torch.train import trainer
+
+    monkeypatch.setattr(trainer, "RVCTrainer", _StubTrainer)
+    if failure == "FileNotFoundError":
+        monkeypatch.setattr(cli, "cmd_index", _raise(FileNotFoundError("no features dir")))
+    elif failure == "SystemExit":
+        monkeypatch.setattr(cli, "cmd_index", _raise(SystemExit(2)))
+    exp = tmp_path / "m"
+    exp.mkdir()
+    (exp / "filelist_train.txt").write_text("")
+    main(["train", "--model_name", "m", "--logs_dir", str(tmp_path), "--total_epoch", "1",
+          "--index_algorithm", "Auto", "--device", "cpu"])
+    out = capsys.readouterr()
+    assert f"warning: post-training index build failed {warning}" in out.err
+    summary = json.loads(out.out.strip().splitlines()[-1])
+    assert summary == {"epochs_run": 1, "best_loss": 1.5, "model": str(exp / "m.safetensors"),
+                       "host": 0, "rank": 0}
+
+
+def _subparser(parser, command):
+    sub = next(a for a in parser._actions if isinstance(a, argparse._SubParsersAction))
+    return sub.choices[command]
+
+
+def _actions(parser) -> dict:
+    return {a.dest: (a.option_strings, a.default, a.choices and list(a.choices), a.required,
+                     a.nargs, a.const)
+            for a in parser._actions if a.dest not in ("help", "device")}
+
+
+@pytest.mark.parametrize("command", ["tts", "download", "prerequisites"])
+def test_parser_actions_match_reference(monkeypatch, command):
+    """Flag for flag (dest, option strings, default, choices, required,
+    nargs), the port's --device aside; and the same defaults set."""
+    import rvc_tpu.cli as jax_cli
+    from rvc_tpu_torch.cli import build_parser
+
+    seen = {}
+
+    def capture(self, argv=None, namespace=None):
+        seen["parser"] = self
+        raise SystemExit(0)
+
+    monkeypatch.setattr(argparse.ArgumentParser, "parse_args", capture)
+    with pytest.raises(SystemExit):
+        jax_cli.main([command])
+    monkeypatch.undo()
+    ref, got = _subparser(seen["parser"], command), _subparser(build_parser(), command)
+    assert _actions(got) == _actions(ref)
+    assert {k: v for k, v in got._defaults.items() if k != "fn"} == \
+        {k: v for k, v in ref._defaults.items() if k != "fn"}
+    if command == "tts":
+        assert got._defaults["fn"].__name__ == "cmd_tts"
+        assert [a.default for a in got._actions if a.dest == "device"] == [None]

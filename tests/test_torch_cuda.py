@@ -516,6 +516,36 @@ def test_resblock_group_gradients(dev, C):
     _assert_bf16_kernel(out.detach(), KR.resblock_group_reference, x, weights, ks, dil)
 
 
+@pytest.mark.parametrize("C,T", [(32, 3001), (64, 777), (128, 200)])
+def test_resblock_group_packed(dev, C, T):
+    """K1 on the packed lane layout (B = 2; T not a multiple of P where P >
+    1): the first T steps at K1's bars against the plain stage on them,
+    zeros past T, 9 launches counted as `resblock_group_packed` and none as
+    `resblock_group`; its gradients against autograd through the plain
+    packed version (rel_l2 < 1e-5)."""
+    g = _gen(dev, C + T)
+    P = 128 // C
+    rows = -(-T // P)
+    x = torch.randn((2, rows * P, C), device=dev, generator=g)
+    x[:, T:] = 0
+    xp = x.reshape(2, rows, P * C)
+    weights = sum((_weights(dev, g, C, K) for K in (3, 7, 11)), ())
+    ks, dil = (3, 7, 11), ((1, 3, 5),) * 3
+    before = dict(LAUNCHES)
+    got = KR.resblock_group_packed(xp, weights, ks, dil, C, T)
+    assert LAUNCHES["resblock_group_packed"] == before["resblock_group_packed"] + 9
+    assert LAUNCHES["resblock_group"] == before["resblock_group"]
+    got = got.reshape(2, rows * P, C)
+    assert not got[:, T:].any()
+    _assert_bf16_kernel(got[:, :T].contiguous(), KR.resblock_group_reference,
+                        x[:, :T].contiguous(), weights, ks, dil)
+    grads, ref, _ = _grads_both_ways(KR.resblock_group_packed,
+                                     KR.resblock_group_packed_reference, (xp, *weights),
+                                     lambda w: (tuple(w),), ks, dil, C, T)
+    for i, (a, b) in enumerate(zip(grads, ref)):
+        assert _rel_l2(a, b) < 1e-5, f"input {i}: rel_l2 {_rel_l2(a, b):.3g}"
+
+
 @pytest.mark.parametrize("K", [3, 7, 11])
 def test_resblock_chain_gradients(dev, K):
     g = _gen(dev, K)

@@ -41,7 +41,8 @@ def test_import_leaves_jax_out():
             "rvc_tpu_torch.monitoring, rvc_tpu_torch.monitoring.voice_metrics, "
             "rvc_tpu_torch.parallel.distributed, rvc_tpu_torch.parallel.mesh, "
             "rvc_tpu_torch.parallel.train, rvc_tpu_torch.tools.model_tools, "
-            "rvc_tpu_torch.tools.plot_logs\n"
+            "rvc_tpu_torch.tools.plot_logs, rvc_tpu_torch.tools.tts, "
+            "rvc_tpu_torch.tools.download, rvc_tpu_torch.utils.profiling\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax') or m.startswith('rvc_tpu.') or m == 'rvc_tpu']\n"
             "assert not bad, bad\n")

@@ -26,7 +26,7 @@ def _pipelines(use_f0: bool, ups_gain: float = 1.0):
     ref = JaxPipeline(tgt_sr=SR, synthesizer=jax_s, synth_variables={"params": s_params},
                       hubert=jax_h, hubert_variables={"params": h_params},
                       pitch_extractor=pitch)
-    return ref, Pipeline(SR, port_s, port_h, port_r, source_noise=False)
+    return ref, Pipeline(SR, port_s, port_h, port_r)
 
 
 @pytest.fixture(scope="module")
@@ -208,3 +208,35 @@ def test_record_calls_replays_the_kernel_calls_of_a_conversion(pipelines):
             torch.testing.assert_close(fn(*args, **kwargs), plain(*args, **kwargs),
                                        rtol=0, atol=0)
     assert replays == []
+
+
+@pytest.mark.parametrize("variable,setting,noisy", [
+    ("0", None, False), (None, None, True), (None, False, False), ("0", True, True),
+], ids=["variable-0", "variable-unset", "keyword-false-wins", "keyword-true-wins"])
+def test_source_noise_follows_the_variable(pipelines, monkeypatch, variable, setting, noisy):
+    """With source_noise None (the default) RVC_TPU_SOURCE_NOISE, read at
+    each conversion, decides: "0" gives the noise-free audio, which matches
+    the JAX `Pipeline`'s (corr > 0.995); unset, the NSF source draws noise
+    and the output moves off the noise-free one. An explicit True or False
+    wins over the variable."""
+    monkeypatch.setenv("RVC_TPU_F16_IN", "0")
+    monkeypatch.setenv("RVC_TPU_F16_OUT", "0")
+    ref_pipe, port_pipe = pipelines
+    clip = _clip()
+    models = (port_pipe.synthesizer, port_pipe.hubert, port_pipe.rmvpe)
+    quiet = Pipeline(SR, *models, source_noise=False).pipeline(clip, sid=1)
+    if variable is None:
+        monkeypatch.delenv("RVC_TPU_SOURCE_NOISE", raising=False)
+    else:
+        monkeypatch.setenv("RVC_TPU_SOURCE_NOISE", variable)
+    pipe = Pipeline(SR, *models) if setting is None else Pipeline(SR, *models,
+                                                                  source_noise=setting)
+    got = pipe.pipeline(clip, sid=1)
+    if noisy:
+        assert np.abs(got - quiet).max() > 1e-3
+    else:
+        np.testing.assert_array_equal(got, quiet)
+        monkeypatch.setenv("RVC_TPU_SOURCE_NOISE", "0")
+        ref = ref_pipe.pipeline(clip, sid=1, f0_method="rmvpe", index=None, index_rate=0.0)
+        corr = np.corrcoef(got, ref)[0, 1]
+        assert corr > 0.995, f"waveform corr {corr:.6f}"

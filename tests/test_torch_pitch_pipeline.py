@@ -42,7 +42,7 @@ def _pipelines(config=None):
     ref = JaxPipeline(tgt_sr=SR, synthesizer=jax_s, synth_variables={"params": s_params},
                       hubert=jax_h, hubert_variables={"params": h_params},
                       config=JaxPipelineConfig(**config) if config else None)
-    port = Pipeline(SR, port_s, port_h, port_r, source_noise=False,
+    port = Pipeline(SR, port_s, port_h, port_r,
                     config=PipelineConfig(**config) if config else None)
     return ref, port
 

@@ -163,7 +163,7 @@ def rvcs():
     port = object.__new__(port_api.RVC)
     port.cfg, port.index = port_get_config(32000, **SMALL_SYNTH_ARGS), None
     port.device = torch.device("cpu")
-    port.pipeline = Pipeline(SR, port_s, port_h, port_r, source_noise=False)
+    port.pipeline = Pipeline(SR, port_s, port_h, port_r)
     return ref, port
 
 

@@ -8,8 +8,8 @@ with autotune, retrieval) and the staged path (pm); the silence
 short-circuit and the zero roll it owes the pitch state; and
 `VoiceChanger.on_request`'s SOLA streaming.
 
-Both sides run with source noise off (`RVC_TPU_SOURCE_NOISE=0` for JAX,
-`source_noise=False` for the port: torch cannot draw JAX's bits). The JAX
+Both sides run with source noise off (`RVC_TPU_SOURCE_NOISE=0`, which the
+port's pipeline reads at each call: torch cannot draw JAX's bits). The JAX
 block program uploads its audio and returns its block in float16
 (`rvc_tpu/realtime/core.py:117, 300`); the port stays float32. Bars:
 - block program, on a float16-exact buffer (so that the JAX upload is
@@ -111,7 +111,7 @@ def make_pair(ups_gain: float = UPS_GAIN, index: bool = False) -> SimpleNamespac
     jidx, pidx = _index_pair() if index else (None, None)
     jax_rvc = SimpleNamespace(pipeline=ref_pipe, cfg=SimpleNamespace(
         data=SimpleNamespace(sample_rate=SR)), index=jidx)
-    port_rvc = SimpleNamespace(pipeline=Pipeline(SR, port_s, port_h, port_r, source_noise=False),
+    port_rvc = SimpleNamespace(pipeline=Pipeline(SR, port_s, port_h, port_r),
                                cfg=port_get_config(SR, **SMALL_SYNTH_ARGS), index=pidx)
     proto = JC.Realtime(jax_rvc)
     proto.realloc(*GEOM48)

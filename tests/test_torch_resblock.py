@@ -1,7 +1,8 @@
 """K1/K2 plain versions against the reference's XLA chains (float32) and
 the TPU kernels in interpret mode (bf16 taps); the bf16 emulation
 (`bf16_operands=True`, the CUDA kernel's arithmetic) against the TPU
-kernels; the kernel's weight layout."""
+kernels; the kernel's weight layout; K1's packed-lane entry against the
+TPU kernel's, with its gradient."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -10,8 +11,10 @@ import torch
 
 from rvc_tpu.ops.pallas import resblock as R
 from rvc_tpu_torch.ops.kernels import LAUNCHES
-from rvc_tpu_torch.ops.kernels.resblock import (kernel_weights, resblock_chain,
-                                                resblock_chain_reference, resblock_group,
+from rvc_tpu_torch.ops.kernels.resblock import (GroupPackedFunction, kernel_weights,
+                                                resblock_chain, resblock_chain_reference,
+                                                resblock_group, resblock_group_packed,
+                                                resblock_group_packed_reference,
                                                 resblock_group_reference)
 
 DIL = (1, 3, 5)
@@ -122,3 +125,76 @@ def test_kernel_weights_are_bf16_taps_out_major():
     assert kw.dtype == torch.bfloat16 and kw.is_contiguous()
     assert kw.shape == (3, 64, 7, 32)
     assert torch.equal(kw.permute(0, 2, 3, 1), w.to(torch.bfloat16))
+
+
+def _packed(x, rows, P):
+    """(1, T, C) numpy -> the packed (1, rows, P * C), zeros past T."""
+    _, T, C = x.shape
+    return np.pad(x, ((0, 0), (0, rows * P - T), (0, 0))).reshape(1, rows, P * C)
+
+
+@pytest.mark.parametrize("C,T", [(32, 48), (64, 50), (32, 50), (64, 51)])
+def test_group_packed_matches_pallas_interpret(C, T):
+    """The packed entry at the decoder's C = 32 / 64 layouts, the first T
+    steps against the TPU kernel in interpret mode at K1's bar. The JAX
+    packed entry takes R * P = T only (its assert); where T is not a
+    multiple of P the JAX side is K1's unpacked entry on the T steps, whose
+    kernel packs x the same way and masks the steps past T alike."""
+    rng = np.random.default_rng(31 + C + T)
+    P = 128 // C
+    rows = -(-T // P)
+    x = _x(rng, T, C)
+    weights = sum((_weights(rng, C, K) for K in (3, 7, 11)), ())
+    jw = tuple(map(jnp.asarray, weights))
+    if rows * P == T:
+        ref = np.asarray(R.resblock_group_packed(jnp.asarray(_packed(x, rows, P)), jw,
+                                                 (3, 7, 11), (DIL,) * 3, C, T))
+        ref = ref.reshape(1, T, C)
+    else:
+        ref = np.asarray(R.fused_resblock_group(jnp.asarray(x), jw, (3, 7, 11), (DIL,) * 3,
+                                                interpret=True))
+    before = LAUNCHES["resblock_group_packed"]
+    got = resblock_group_packed(torch.from_numpy(_packed(x, rows, P)),
+                                tuple(map(torch.from_numpy, weights)), (3, 7, 11), (DIL,) * 3,
+                                C, T).numpy()
+    assert LAUNCHES["resblock_group_packed"] == before
+    assert got.shape == (1, rows, 128)
+    got = got.reshape(1, rows * P, C)
+    assert not got[:, T:].any()
+    _close_to_bf16_kernel(got[:, :T], ref)
+
+
+def test_group_packed_gradient_matches_autograd():
+    """`GroupPackedFunction`'s backward (unfold, the plain stage's vjp,
+    refold) against autograd through the plain stage on the unfolded
+    steps: every gradient within 1e-5 (rel_l2); the steps past T get
+    none."""
+    rng = np.random.default_rng(41)
+    C, T, P = 32, 50, 4
+    rows = -(-T // P)
+    x = torch.from_numpy(_packed(_x(rng, T, C), rows, P)).requires_grad_()
+    weights = tuple(torch.from_numpy(w).requires_grad_()
+                    for w in sum((_weights(rng, C, K) for K in (3, 7, 11)), ()))
+    g = torch.from_numpy(rng.standard_normal((1, rows, P * C)).astype(np.float32))
+    out = GroupPackedFunction.apply(resblock_group_packed_reference, (3, 7, 11), (DIL,) * 3, C,
+                                    T, 0.1, x, *weights)
+    got = torch.autograd.grad(out, (x, *weights), g)
+    xu = x.detach().reshape(1, rows * P, C)[:, :T].clone().requires_grad_()
+    ref_out = resblock_group_reference(xu, weights, (3, 7, 11), (DIL,) * 3)
+    ref = torch.autograd.grad(ref_out, (xu, *weights), g.reshape(1, rows * P, C)[:, :T])
+    gx = got[0].reshape(1, rows * P, C)
+    assert not gx[:, T:].any()
+    for a, b in zip((gx[:, :T], *got[1:]), ref):
+        assert float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)) < 1e-5
+
+
+@pytest.mark.parametrize("shape,channels,t_valid", [
+    ((1, 12, 128), 48, 40), ((1, 12, 64), 32, 48), ((1, 12, 128), 32, 49)])
+def test_group_packed_refuses_a_bad_layout(shape, channels, t_valid):
+    """C outside (128, 64, 32), rows narrower than P * C, or more valid
+    steps than R * P hold: ValueError."""
+    x = torch.zeros(shape)
+    weights = tuple(torch.zeros(3, k, 32, 32) if j % 2 == 0 else torch.zeros(3, 32)
+                    for k in (3, 7, 11) for j in range(4))
+    with pytest.raises(ValueError):
+        resblock_group_packed(x, weights, (3, 7, 11), (DIL,) * 3, channels, t_valid)

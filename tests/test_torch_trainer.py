@@ -313,7 +313,7 @@ def test_exported_pth_converts_in_both_packages(tmp_path, small_discriminator):
     pcfg, state = port_api._load_model(path, None)
     synth = build_synthesizer(pcfg).eval()
     synth.load_state_dict(state, strict=True)
-    port = Pipeline(32000, synth, hubert, port_r, source_noise=False)
+    port = Pipeline(32000, synth, hubert, port_r)
     jcfg, j_params = jax_api.RVC._load_model(object.__new__(jax_api.RVC), path, None, 0)
     ref = JaxPipeline(
         tgt_sr=32000, synthesizer=jax_build(jcfg), synth_variables={"params": j_params},

@@ -150,7 +150,7 @@ def test_pipeline_matches_jax(vocoder, monkeypatch):
     ref_pipe = JaxPipeline(tgt_sr=SR, synthesizer=jax_s, synth_variables={"params": s_params},
                            hubert=jax_h, hubert_variables={"params": h_params},
                            pitch_extractor=pitch)
-    port_pipe = Pipeline(SR, port_s, port_h, port_r, source_noise=False)
+    port_pipe = Pipeline(SR, port_s, port_h, port_r)
     clip = _clip()
     ref = ref_pipe.pipeline(clip, sid=1, f0_method="rmvpe", index=None, index_rate=0.0)
     with record_calls() as calls:
