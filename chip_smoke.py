@@ -8,9 +8,12 @@ Phases, one JSON line each (a `kernel` line per kernel call):
   build     nvcc builds every kernel of `rvc_tpu_torch/csrc/` (seconds)
   pipeline  the full-width 48 kHz model (random weights from seed 0)
             converts a 13.5 s clip through `RVC.infer`; wall ms after a warm
-            call, the realtime factor, and each kernel's launches in that run
+            call, the realtime factor, and each kernel's launches in that
+            run; under the compute policy unset, bf16 on the card
+            (RVC_TPU_BF16; every phase below runs under it unless it says)
   stages    device ms of each stage of one 13.5 s chunk (f0 program, HuBERT,
-            enc_p, flow, decoder) and the host's preparation time
+            enc_p, flow, decoder) under that policy and the host's
+            preparation time
   kernel    every kernel-wrapper call of one more conversion of the clip,
             recorded with its inputs (`ops.kernels.record_calls`) and
             replayed: the kernel against its plain PyTorch version on the
@@ -18,7 +21,9 @@ Phases, one JSON line each (a `kernel` line per kernel call):
             in float64, and where the float32 plain version misses the bar
             there, within twice its distance), max_abs / rel_l2 / tolerance, ms for
             both (CUDA events around one call, the host's launch work
-            included; the median of 5 runs after warmup), `ms_queued` and
+            included; the median of 5 runs after warmup; K3's calls take
+            bf16 rows under the policy and are held against their plain
+            version at rel_l2 <= 4e-3 and corr > 0.9999), `ms_queued` and
             `plain_ms_queued` for both (10 calls queued back to back, over
             10, as in a conversion), and the bound at the kernel's own
             peak. K1/K2 (bf16 operands, float32 sums, as the
@@ -36,8 +41,20 @@ Phases, one JSON line each (a `kernel` line per kernel call):
             `sdpa_ms_queued`); every line carries `device_ms`, each CUDA
             kernel's device time per call from torch.profiler. The replay
             must launch each kernel as often as the timed run did.
-  parity    a 2 s clip on the card and through the port's CPU path (the
-            plain versions), same weights, source noise off: waveform corr
+  parity    a 2 s clip on the card (bf16) and through the port's CPU path
+            (the plain versions, float32: the CPU's default), same weights,
+            source noise off, each side's policy printed: waveform corr
+  bf16      the compute policy on the main path: RVC_TPU_BF16=1 against 0 on
+            the card (wall ms, launches, waveform corr > 0.999 and
+            spectrogram corr > 0.99, the reference's bars), the card's bf16
+            against the CPU's bf16 on the 2 s clip (corr > 0.99), each
+            stage's device ms under both, the bf16 copies' memory,
+            RVC_TPU_BF16_F0's f0 program (ms, voicing agreement and cents
+            p95 against float32), one BatchConverter batch (8 x 12 s) and
+            one realtime block under each policy (ms, launches; corr >
+            0.99); then the K3 calls of a float32 conversion (the entry the
+            staged path and training launch) as `kernel` lines and the
+            summary's float32 K3 line
   retrieval the same 48 kHz model written as an upstream `.pth` (fp16
             weights, the 18-element config list) and an IVFFlat index built
             on the card from the port's HuBERT features of seeded chirps
@@ -99,8 +116,8 @@ Phases, one JSON line each (a `kernel` line per kernel call):
             block (CUDA kernels, copies, busy ms, the top kernels), and every kernel
             call of one block held against its plain version (with grid) and
             timed beside its bound
-  realtime_checks  the staged block against the fused one (corr > 0.999,
-            atol 5e-3); three silent blocks (zeros, no launch); 4 blocks on
+  realtime_checks  the staged block against the fused one, both float32
+            (corr > 0.999, atol 5e-3); three silent blocks (zeros, no launch); 4 blocks on
             the card against the port's CPU path, noise off (corr > 0.99);
             index_rate 0.75 on the retrieval phase's index (ms per block, beside
             a fresh engine without it on the same blocks);
@@ -199,7 +216,10 @@ over the train phase's extraction and `train_step` per step;
 `longform_mesh` over its run, `ddp_gloo_rank0` / `ddp_gloo_rank1` over
 their 3 steps, `tp_gloo_rank0` / `tp_gloo_rank1` over theirs and
 `ddp_nccl` over its epoch, `frontends_download` / `frontends_tts` /
-`frontends_trace` over one conversion each; the `_tp` variants' lines from
+`frontends_trace` over one conversion each, `bf16_main` / `f32_main` /
+`bf16_batch` / `bf16_block` from the bf16 phase; K3's line names its rows,
+bf16 on the main path, and a second K3 line holds the float32 entry from
+the bf16 phase; the `_tp` variants' lines from
 `tp_gloo`, their calls on rank 0 in one step; K1-packed's from the
 `frontends` phase's packed part),
 the card line, and
@@ -255,7 +275,10 @@ KERNELS = {
         name="K3 rel_attention", module="attention", entry="rvc_rel_attention",
         source="rvc_tpu_torch/csrc/rel_attention.cu",
         replaces="rvc_tpu/ops/pallas/attention.py:87 fused_rel_attention",
-        peak=PEAK_F32, atol=1e-4, rtol=1e-4),
+        peak=PEAK_F32, atol=1e-4, rtol=1e-4,
+        # bf16 rows (the bf16 compute policy): against the plain version, which
+        # computes in float32 and rounds the output to bf16 as the kernel does
+        bf16_rel_l2=4e-3, bf16_min_corr=0.9999),
     "log_mel": dict(
         name="K4 log_mel", module="melspec", entry="rvc_log_mel",
         source="rvc_tpu_torch/csrc/melspec.cu",
@@ -266,6 +289,30 @@ KERNELS = {
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def policy(device) -> str:
+    """The compute dtype a conversion on `device` runs under now
+    (RVC_TPU_BF16; `utils.device.compute_dtype`)."""
+    import torch
+
+    from rvc_tpu_torch.utils.device import compute_dtype
+
+    return str(compute_dtype(torch.device(device))).replace("torch.", "")
+
+
+@contextlib.contextmanager
+def env(name: str, value: str):
+    """`name` set to `value` inside, restored (or unset) after."""
+    old = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = old
 
 
 def card_line() -> str:
@@ -354,6 +401,22 @@ def compare(got, ref, atol: float, rtol: float, what: str, min_corr=None) -> dic
     return out
 
 
+def compare_bf16(got, ref, max_rel_l2: float, min_corr: float, what: str) -> dict:
+    """A kernel on bf16 rows against its plain version on the same rows
+    (float32 arithmetic, the output rounded to bf16): rel_l2 and corr in
+    float64. Raises on a miss."""
+    import torch
+
+    got, ref = got.double(), ref.double()
+    out = {"max_abs": float((got - ref).abs().max()), "rel_l2": rel_l2(got, ref),
+           "corr": float(torch.corrcoef(torch.stack([got.flatten(), ref.flatten()]))[0, 1]),
+           "tol": f"rel_l2 <= {max_rel_l2} (the output's bf16 rounding), corr > {min_corr}"}
+    if not (math.isfinite(out["max_abs"]) and out["rel_l2"] <= max_rel_l2
+            and out["corr"] > min_corr):
+        raise AssertionError(f"{what}: kernel disagrees with its plain version ({out})")
+    return out
+
+
 def compare_exact(got, plain32, exact, atol: float, rtol: float, what: str) -> dict:
     """A float32 kernel against its plain version run in float64 (`exact`):
     |d| <= atol + rtol |exact| at every element. Where the float32 plain
@@ -424,11 +487,12 @@ def cast(obj, dtype):
 
 def work(name: str, a: dict) -> tuple:
     """(FLOP, bytes) one wrapper call must do on these inputs: the bytes read
-    each input once and write each output once; the FLOP count the keys
-    this run's lengths leave valid."""
-    nbytes = 4 * sum(t.numel() for v in a.values()
-                     for t in (v if isinstance(v, (tuple, list)) else (v,))
-                     if hasattr(t, "numel"))
+    each input once and write each output once (at their element sizes:
+    K3's bf16 rows two bytes); the FLOP count the keys this run's lengths
+    leave valid."""
+    nbytes = sum(t.numel() * t.element_size() for v in a.values()
+                 for t in (v if isinstance(v, (tuple, list)) else (v,))
+                 if hasattr(t, "numel"))
     if name == "log_mel":
         B, T = a["audio"].shape
         frames, bins = 1 + T // a["hop"], a["n_fft"] // 2 + 1
@@ -438,7 +502,7 @@ def work(name: str, a: dict) -> tuple:
         B, H, T, D = a["q"].shape
         keys = sum(min(int(n), T) for n in a["key_lens"])   # valid keys over the batch
         flop = 4 * H * T * keys * D + 4 * B * H * T * (2 * a["window_size"] + 1) * D
-        return flop, nbytes + a["q"].numel() * 4
+        return flop, nbytes + a["q"].numel() * a["q"].element_size()
     B, T, C = a["x"].shape
     if name == "resblock_chain":
         taps = 2 * len(a["dilations"]) * a["kernel_size"]
@@ -481,11 +545,13 @@ def sdpa_mask(a: dict):
 
 def kernel_grid(name: str, a: dict) -> dict:
     """The launch grid of K3's split kernel or K4's DFT kernel for this call."""
+    import torch
+
     if name == "rel_attention":
         from rvc_tpu_torch.ops.kernels.attention import launch_plan
 
         B, H, T, D = a["q"].shape
-        return launch_plan(B * H, T, D, a["window_size"])
+        return launch_plan(B * H, T, D, a["window_size"], a["q"].dtype == torch.bfloat16)
     from rvc_tpu_torch.ops.kernels.melspec import launch_plan
 
     B, T = a["audio"].shape
@@ -512,7 +578,13 @@ def check_calls(calls: list) -> list:
         got, ref = fn(*args, **kwargs), plain(*args, **kwargs)
         desc = describe(a)
         what = f"{name} {desc}"
-        if name in ("rel_attention", "log_mel"):
+        if name == "rel_attention" and a["q"].dtype == torch.bfloat16:
+            T = a["q"].shape[2]      # rows past the length differ by design
+            valid = (torch.arange(T, device=got.device)[None, :]
+                     < a["key_lens"].to(got.device)[:, None])[:, None, :, None]
+            cmp = compare_bf16(got * valid, ref * valid, spec["bf16_rel_l2"],
+                               spec["bf16_min_corr"], what)
+        elif name in ("rel_attention", "log_mel"):
             # float32 kernels, held against their plain version run in float64:
             # two float32 runs can each miss the bar against exact
             # arithmetic, and then differ from each other by twice it
@@ -556,8 +628,12 @@ def held_calls(calls: list, time_them: bool = False) -> dict:
                       "plain_f32_vs_f64_rel_l2", "vs_plain_f32_max_abs"):
                 if k in cmp:
                     h[k] = max(h[k], cmp[k]) if k in h else cmp[k]
+            if "corr" in cmp:
+                h["min_corr"] = min(h.get("min_corr", 1.0), cmp["corr"])
             if name in ("rel_attention", "log_mel"):
                 h["grid"] = kernel_grid(name, a)
+            if name == "rel_attention":
+                h["rows"] = str(a["q"].dtype).replace("torch.", "")
             if time_them:
                 flop, nbytes = work(name, a)
                 h["ms"] = h.get("ms", 0.0) + cuda_ms(lambda: fn(*args, **kwargs))
@@ -571,19 +647,22 @@ def held_calls(calls: list, time_them: bool = False) -> dict:
     return held
 
 
-def phase_kernels(calls: list, launches: dict) -> list:
-    """Replay each recorded wrapper call: check the kernel against its plain
-    version, then time both. Returns the per-kernel summary."""
+def phase_kernels(calls: list, launches: dict, only=tuple(KERNELS)) -> list:
+    """Replay each recorded wrapper call of the kernels `only` names: check
+    the kernel against its plain version, then time both. Returns the
+    per-kernel summary (K3's line names the dtype of its rows)."""
     import torch
 
     from rvc_tpu_torch.ops.kernels import LAUNCHES, reset_launches
 
     results = {}
+    calls = [c for c in calls if c[0].__name__ in only]
+    launches = {k: launches[k] for k in only}
     with torch.inference_mode():
         reset_launches()
         checked = check_calls(calls)
         torch.cuda.synchronize()
-        replayed = dict(LAUNCHES)
+        replayed = {k: LAUNCHES[k] for k in only}
         if replayed != launches:
             raise AssertionError(f"the recorded calls launch {replayed}, "
                                  f"the timed conversion launched {launches}")
@@ -613,7 +692,8 @@ def phase_kernels(calls: list, launches: dict) -> list:
                 extra["sdpa_ms_queued"] = cuda_ms(sdpa, calls=KERNEL_CALLS)
                 del mask
             bound_ms, bound_by = bound(flop, nbytes, spec["peak"])
-            emit({"phase": "kernel", "name": spec["name"], "inputs": desc, **cmp,
+            rows = f" ({a['q'].dtype} rows)".replace("torch.", "") if name == "rel_attention" else ""
+            emit({"phase": "kernel", "name": spec["name"] + rows, "inputs": desc, **cmp,
                   "ms": ms, "plain_ms": plain_ms, **extra, "bound_ms": bound_ms,
                   "bound_by": bound_by, "bound": bound_text(spec["peak"])})
             r = results.setdefault(name, dict(flop=0, bytes=0, calls=0, max_abs_err=0.0,
@@ -629,6 +709,10 @@ def phase_kernels(calls: list, launches: dict) -> list:
             r["plain_ms_queued"] += extra["plain_ms_queued"]
             if "grid" in extra:
                 r["grid"] = extra["grid"]
+            if name == "rel_attention":
+                r["rows"] = str(a["q"].dtype).replace("torch.", "")
+            if "corr" in cmp:
+                r["min_corr"] = min(r.get("min_corr", 1.0), cmp["corr"])
             dev = r.setdefault("device_ms", {})
             for k, t in extra["device_ms"].items():
                 dev[k] = dev.get(k, 0.0) + t
@@ -640,13 +724,16 @@ def phase_kernels(calls: list, launches: dict) -> list:
                 for k in ("emu_rel_l2", "emu_update_rel_l2", "cudnn_emu_rel_l2"):
                     r[k] = max(r.get(k, 0.0), cmp[k])
     summary = []
-    for name, spec in KERNELS.items():
-        r = results.get(name)
+    for name in only:
+        spec, r = KERNELS[name], results.get(name)
         if r is None:
             raise AssertionError(f"the main path made no call of {name}")
         bound_ms, bound_by = bound(r["flop"], r["bytes"], spec["peak"])
+        rows = r.get("rows")
         summary.append(dict(
-            name=spec["name"], route="cuda", source=spec["source"], entry=spec["entry"],
+            name=spec["name"] + (f" ({rows} rows)" if rows else ""), rows=rows,
+            min_corr=r.get("min_corr"), route="cuda", source=spec["source"],
+            entry=spec["entry"] + ("_bf16" if rows == "bfloat16" else ""),
             replaces=spec["replaces"], launches=launches[name], calls=r["calls"],
             max_abs_err=r["max_abs_err"], ms=r["ms"], ms_queued=r["ms_queued"],
             device_ms=r.get("device_ms"), plain_ms=r["plain_ms"],
@@ -660,9 +747,11 @@ def phase_kernels(calls: list, launches: dict) -> list:
     return summary
 
 
-def phase_stages(rvc) -> None:
-    """Device time of each stage of one 13.5 s chunk (median CUDA-event ms),
-    beside the host's share of a conversion."""
+def stage_ms(rvc, dtype) -> tuple:
+    """(device ms of each stage of one 13.5 s chunk under compute dtype
+    `dtype`, median CUDA events; the host's preparation ms). Under bf16 the
+    pipeline's bf16 copies run on the chunk rounded to bf16, the decoder on
+    float32 activations (`Pipeline.models`); the f0 program is float32."""
     import numpy as np
     import torch
     from torch.nn import functional as F
@@ -671,7 +760,8 @@ def phase_stages(rvc) -> None:
     from rvc_tpu_torch.pipelines.offline import coarse_f0_torch, upsample_protect
     from rvc_tpu_torch.utils import audio as audio_utils
 
-    p, synth = rvc.pipeline, rvc.pipeline.synthesizer
+    p = rvc.pipeline
+    hubert, synth = p.models(dtype)
     clip = test_clip(CLIP_S, SEED)
     t0 = time.perf_counter()
     chunk = np.pad(audio_utils.highpass_filter(clip, 16000, 48.0, 5), (p.t_pad, p.t_pad),
@@ -692,9 +782,10 @@ def phase_stages(rvc) -> None:
         trunk = p.rmvpe.cnn(p.rmvpe.unet(melp[..., None]))
         trunk = trunk.permute(0, 1, 3, 2).reshape(*trunk.shape[:2], -1)
         st["    BiGRU + fc"] = cuda_ms(lambda: p.rmvpe.fc(trunk))
-        st["HuBERT"] = cuda_ms(lambda: p.hubert(audio))
+        audio_c = audio.to(dtype)
+        st["HuBERT"] = cuda_ms(lambda: hubert(audio_c))
         f0 = p.f0(audio, 0.0, 0.0)
-        feats = p.hubert(audio)
+        feats = hubert(audio_c)
         feats = F.pad(feats.transpose(1, 2), (0, max(0, (f0.shape[1] + 1) // 2 - feats.shape[1])),
                       mode="replicate").transpose(1, 2)
         phone = upsample_protect(feats, feats, f0, 0.5)
@@ -706,9 +797,21 @@ def phase_stages(rvc) -> None:
         g = synth.emb_g(sid)[:, None, :]
         st["  enc_p (K3)"] = cuda_ms(lambda: synth.enc_p(phone, pitch, lengths))
         st["  flow"] = cuda_ms(lambda: synth.flow(m_p * x_mask, x_mask, g=g))
-        z = synth.flow(m_p * x_mask, x_mask, g=g) * x_mask
-        st["  decoder (K1, K2)"] = cuda_ms(lambda: synth.dec(z, f0, g=g))
-    emit({"phase": "stages", "clip_s": CLIP_S, "host_prep_ms": host_ms, "device_ms": st})
+        z = (synth.flow(m_p * x_mask, x_mask, g=g) * x_mask).float()
+        gd = g.float()
+        st["  decoder (K1, K2)"] = cuda_ms(lambda: synth.dec(z, f0, g=gd))
+    return st, host_ms
+
+
+def phase_stages(rvc) -> None:
+    """Device time of each stage of one 13.5 s chunk (median CUDA-event ms)
+    under the policy the main path ran under, beside the host's share of a
+    conversion."""
+    from rvc_tpu_torch.utils.device import compute_dtype
+
+    st, host_ms = stage_ms(rvc, compute_dtype(rvc.device))
+    emit({"phase": "stages", "clip_s": CLIP_S, "policy": policy(rvc.device),
+          "host_prep_ms": host_ms, "device_ms": st})
 
 
 def timed_conversion(rvc, clip, samples=None, **kwargs) -> tuple:
@@ -736,9 +839,11 @@ def timed_conversion(rvc, clip, samples=None, **kwargs) -> tuple:
     return out, wall_ms, launches
 
 
-def gpu_cpu_corr(rvc, model_path: str, index_path: str) -> dict:
+def gpu_cpu_corr(rvc, model_path: str, index_path: str, staged: bool = False) -> dict:
     """A 2 s clip through `rvc` on the card and through the same files on
-    the port's CPU path, source noise off: waveform corr > 0.99."""
+    the port's CPU path, source noise off: waveform corr > 0.99. The card
+    runs the compute policy (bf16 by default) unless the model takes the
+    staged path (`staged`), which is float32."""
     import numpy as np
 
     from rvc_tpu_torch.api import RVC
@@ -755,7 +860,215 @@ def gpu_cpu_corr(rvc, model_path: str, index_path: str) -> dict:
     if not corr > 0.99:
         raise AssertionError(f"GPU vs CPU waveform corr {corr}")
     return {"clip_s": PARITY_S, "waveform_corr": corr,
-            "max_abs": float(np.abs(gpu - cpu).max()), "cpu_seconds": time.perf_counter() - t0}
+            "card_policy": "float32 (staged path)" if staged else policy(rvc.device),
+            "cpu_policy": policy("cpu"), "max_abs": float(np.abs(gpu - cpu).max()),
+            "cpu_seconds": time.perf_counter() - t0}
+
+
+# tests/unit/test_fused_pipeline.py:109-128; the spectrogram corr with an 80 dB
+# floor, as `monitoring.voice_metrics.spectrogram_correlation` says to compare
+# reduced-precision paths (without one, bins far below the peak dominate)
+BF16_WAVE_CORR, BF16_SPEC_CORR = 0.999, 0.99
+
+
+def _rounded_decoder(synth):
+    """A copy of the float32 synthesizer whose decoder parameters are
+    rounded through bf16 (as in the bf16 copy), everything else float32."""
+    import copy
+
+    from rvc_tpu_torch.models.generators import round_params_bf16_
+
+    out = copy.deepcopy(synth).requires_grad_(False)
+    round_params_bf16_(out.dec)
+    return out
+
+
+def encoder_traces(rvc, dtype) -> dict:
+    """torch.profiler over one enc_p and one reverse flow of the main path's
+    chunk under compute dtype `dtype`: kernels and busy ms of each."""
+    import numpy as np
+    import torch
+
+    p = rvc.pipeline
+    synth = p.models(dtype)[1]
+    clip = test_clip(CLIP_S, SEED)
+    with torch.inference_mode():
+        audio = p._upload(np.pad(clip, (p.t_pad, p.t_pad), mode="reflect"))
+        n = audio.shape[1] // 160
+        feats, _ = p._features(audio, n, None, 0.0, dtype)
+        phone = feats.repeat_interleave(2, dim=1)
+        lengths = torch.tensor([n], device=rvc.device)
+        pitch = torch.full(phone.shape[:2], 100, device=rvc.device)
+        g = synth.emb_g(torch.tensor([0], device=rvc.device))[:, None, :]
+        m_p, _, x_mask = synth.enc_p(phone, pitch, lengths)
+        return {"enc_p": trace_one(lambda: synth.enc_p(phone, pitch, lengths), top=5),
+                "flow": trace_one(lambda: synth.flow(m_p * x_mask, x_mask, g=g), top=5)}
+
+
+def bf16_copies_memory(rvc) -> dict:
+    """The bf16 copies of HuBERT and the synthesizer made anew on the card
+    (`Pipeline.models`): the bytes they keep and the peak above the memory
+    before them."""
+    import torch
+
+    p = rvc.pipeline
+    p._bf16 = None
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    hubert, synth = p.models(torch.bfloat16)
+    torch.cuda.synchronize()
+    return {"seconds": time.perf_counter() - t0,
+            "kept_mb": (torch.cuda.memory_allocated() - base) / 1e6,
+            "peak_mb": (torch.cuda.max_memory_allocated() - base) / 1e6,
+            "params_m": {"hubert": sum(t.numel() for t in hubert.parameters()) / 1e6,
+                         "synthesizer": sum(t.numel() for t in synth.parameters()) / 1e6}}
+
+
+def phase_bf16(rvc, cpu_rvc) -> dict:
+    """The bf16 compute policy on the main path (RVC_TPU_BF16=1 against 0 on
+    the same model and 13.5 s clip, source noise off): wall ms and launches
+    under each, waveform corr > 0.999 and spectrogram corr > 0.99 (the
+    reference's bars); the card's bf16 against the port's CPU bf16 on the
+    2 s clip (corr > 0.99); each stage's device ms under both policies; the
+    bf16 copies' memory; RVC_TPU_BF16_F0's f0 program (ms, voicing
+    agreement and cents p95 against float32); one BatchConverter batch and
+    one realtime block under each policy (ms; bf16 against float32 corr >
+    0.99); then K3's float32 line: the calls of a float32 conversion
+    checked and timed. Returns (K3's float32 summary entry, {path:
+    launches})."""
+    import numpy as np
+    import torch
+
+    from rvc_tpu_torch.monitoring.voice_metrics import spectrogram_correlation
+    from rvc_tpu_torch.ops.kernels import LAUNCHES, record_calls, reset_launches
+    from rvc_tpu_torch.parallel import BatchConverter
+    from rvc_tpu_torch.realtime.core import VoiceChanger
+
+    p = rvc.pipeline
+    p.source_noise = False
+    clip = test_clip(CLIP_S, SEED)
+    dtypes = {"1": torch.bfloat16, "0": torch.float32}
+    out, walls, launches, stages, traces = {}, {}, {}, {}, {}
+    for v, dtype in dtypes.items():       # in turns: bf16, float32, float32, bf16
+        with env("RVC_TPU_BF16", v):
+            out[v], walls[v], launches[v] = timed_conversion(rvc, clip)
+    for v, dtype in reversed(dtypes.items()):
+        with env("RVC_TPU_BF16", v):
+            walls[v] = [walls[v], timed_conversion(rvc, clip)[1]]
+    for dtype in dtypes.values():
+        name = str(dtype).replace("torch.", "")
+        stages[name] = stage_ms(rvc, dtype)[0]
+        traces[name] = encoder_traces(rvc, dtype)
+    if launches["1"] != launches["0"] or launches["1"]["rel_attention"] != 6:
+        raise AssertionError(f"launches bf16 {launches['1']}, float32 {launches['0']}")
+
+    def agreement(a, b) -> dict:
+        return {"waveform_corr": float(np.corrcoef(a, b)[0, 1]),
+                "spec_corr": spectrogram_correlation(b, a, top_db=80),
+                "spec_corr_no_floor": spectrogram_correlation(b, a),
+                "max_abs": float(np.abs(a - b).max())}
+
+    # the decoder's bf16-rounded parameters alone, the rest float32: how much
+    # of the difference the reference's parameter cast makes by itself
+    f32_synth = p.synthesizer
+    p.synthesizer = _rounded_decoder(f32_synth)
+    with env("RVC_TPU_BF16", "0"), torch.inference_mode():
+        dec_only = rvc.infer(clip)
+    p.synthesizer = f32_synth
+    main = {"wall_ms": {"bfloat16": walls["1"], "float32": walls["0"]},
+            "launches": launches["1"], **agreement(out["1"], out["0"]),
+            "decoder_rounding_only": agreement(dec_only, out["0"]),
+            "bars": f"waveform corr > {BF16_WAVE_CORR}, spec corr (80 dB floor) > "
+                    f"{BF16_SPEC_CORR}"}
+    if not (main["waveform_corr"] > BF16_WAVE_CORR and main["spec_corr"] > BF16_SPEC_CORR):
+        raise AssertionError(f"bf16 against float32 on the card: {main}")
+
+    short = test_clip(PARITY_S, SEED + 1)
+    with env("RVC_TPU_BF16", "1"):
+        gpu = rvc.infer(short)
+        t0 = time.perf_counter()
+        cpu = cpu_rvc.infer(short)
+        host = {"card_policy": policy(rvc.device), "cpu_policy": policy("cpu"),
+                "cpu_seconds": time.perf_counter() - t0}
+    host["waveform_corr"] = float(np.corrcoef(gpu, cpu)[0, 1]) if len(gpu) == len(cpu) else None
+    if not (host["waveform_corr"] or 0) > 0.99:
+        raise AssertionError(f"the card's bf16 against the CPU's bf16: {host}")
+    cpu_rvc.pipeline._bf16 = None
+
+    memory = bf16_copies_memory(rvc)
+
+    # RVC_TPU_BF16_F0: the f0 program on the main path's padded chunk
+    chunk = np.pad(clip, (p.t_pad, p.t_pad), mode="reflect")
+    chunk = np.pad(chunk, (0, p._bucket_samples(len(chunk)) - len(chunk)), mode="reflect")
+    with torch.inference_mode():
+        audio = torch.from_numpy(chunk)[None].to(rvc.device)
+        f0 = {str(d).replace("torch.", ""): p.f0(audio, 0.0, 0.0, d).cpu().numpy()
+              for d in dtypes.values()}
+        f0_ms = {str(d).replace("torch.", ""): cuda_ms(lambda d=d: p.f0(audio, 0.0, 0.0, d))
+                 for d in dtypes.values()}
+    a, b = f0["bfloat16"], f0["float32"]
+    both = (a > 0) & (b > 0)
+    cents = 1200 * np.abs(np.log2(a[both] / b[both])) if both.any() else np.zeros(1)
+    f0_line = {"ms": f0_ms, "frames": int(a.size), "voiced_f32": float((b > 0).mean()),
+               "voicing_agreement": float(((a > 0) == (b > 0)).mean()),
+               "cents_p95": float(np.percentile(cents, 95)), "cents_max": float(cents.max())}
+    if not np.isfinite(a).all():
+        raise AssertionError(f"RVC_TPU_BF16_F0: f0 not finite ({f0_line})")
+
+    # one BatchConverter batch (B = 8 windows of the long-form shape) and one
+    # realtime block at the reference's session, under each policy
+    bc = BatchConverter(rvc)
+    window = int((CHUNK_S + 2 * PAD_S) * 16000)
+    batch = np.stack([test_clip(CHUNK_S + 2 * PAD_S, SEED + 10 + i)[:window]
+                      for i in range(LONG_BATCH)])
+    block = rt_clip48(2, 192 * 128, SEED)
+    paths, outs = {}, {}
+    for v, dtype in dtypes.items():
+        name = str(dtype).replace("torch.", "")
+        with env("RVC_TPU_BF16", v):
+            bc.convert_batch(batch)                                # warm
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            got = bc.convert_batch(batch)
+            batch_ms = 1e3 * (time.perf_counter() - t0)
+            batch_launches = dict(LAUNCHES)
+            vc = VoiceChanger(rvc, silent_threshold=RT_GATE_DB)
+            vc.on_request(block[: vc.block_frame], index_rate=0.0)  # warm
+            reset_launches()
+            t0 = time.perf_counter()
+            blk = vc.on_request(block[vc.block_frame:], index_rate=0.0)[0]
+            block_ms = 1e3 * (time.perf_counter() - t0)
+            block_launches = dict(LAUNCHES)
+        if not (np.isfinite(got).all() and np.isfinite(blk).all()):
+            raise AssertionError(f"{name}: a batch or block not finite")
+        outs[name] = (got, blk)
+        paths[name] = {"batch_ms": batch_ms, "batch_launches": batch_launches,
+                       "block_ms": block_ms, "block_launches": block_launches}
+    (g16, b16), (g32, b32) = outs["bfloat16"], outs["float32"]
+    paths["batch_min_corr"] = min(float(np.corrcoef(x, y)[0, 1]) for x, y in zip(g16, g32))
+    paths["block_corr"] = float(np.corrcoef(b16, b32)[0, 1])
+    if not (paths["batch_min_corr"] > 0.99 and paths["block_corr"] > 0.99):
+        raise AssertionError(f"bf16 against float32, batch / block: {paths}")
+
+    emit({"phase": "bf16", "clip_s": CLIP_S, "main": main, "card_vs_cpu_bf16": host,
+          "stages_device_ms": stages, "encoder_traces": traces, "copies": memory,
+          "bf16_f0": f0_line,
+          "batch_and_block": paths, "batch": list(batch.shape),
+          "block_48k": 192 * 128})
+
+    # K3's float32 entry (the staged path and training launch it): the calls
+    # of one float32 conversion, against the plain version and timed
+    with env("RVC_TPU_BF16", "0"), record_calls() as calls:
+        rvc.infer(clip)
+    k3_f32 = phase_kernels(calls, launches["0"], only=("rel_attention",))[0]
+    p.source_noise = True
+    return k3_f32, {"bf16_main": launches["1"], "f32_main": launches["0"],
+                    "bf16_batch": paths["bfloat16"]["batch_launches"],
+                    "bf16_block": paths["bfloat16"]["block_launches"]}
 
 
 def index_features(hubert, device, n: int):
@@ -901,7 +1214,7 @@ def phase_f0less(index_path: str, work: str) -> dict:
           "decoder_channels": [m.out_channels for m in rvc.pipeline.synthesizer.dec.ups],
           "clip_s": CLIP_S, "index_rate": INDEX_RATE, "wall_ms": wall_ms,
           "realtime_x": CLIP_S * 1e3 / wall_ms, "launches": launches, "checked": held,
-          "parity": gpu_cpu_corr(rvc, model_path, index_path)})
+          "parity": gpu_cpu_corr(rvc, model_path, index_path, staged=True)})
     return launches
 
 
@@ -1093,7 +1406,7 @@ def phase_pitch(rvc, work: str) -> dict:
     cpu = RVC(config=get_config(48000), seed=SEED, device="cpu",
               source_noise=False).infer(short, f0_method="crepe-tiny")
     corr = float(np.corrcoef(gpu, cpu)[0, 1]) if len(gpu) == len(cpu) else float("nan")
-    parity = {"clip_s": PARITY_S, "waveform_corr": corr,
+    parity = {"clip_s": PARITY_S, "waveform_corr": corr, "policy": "float32 (staged path)",
               "cpu_seconds": time.perf_counter() - t0}
     if not corr > 0.99:
         raise AssertionError(f"staged crepe-tiny, GPU vs CPU: {len(gpu)} / {len(cpu)} "
@@ -1525,6 +1838,7 @@ def phase_longform(rvc) -> dict:
 
     from rvc_tpu_torch.ops.kernels import record_calls
     from rvc_tpu_torch.parallel import BatchConverter
+    from rvc_tpu_torch.utils.device import compute_dtype
 
     p = rvc.pipeline
     p.source_noise = True
@@ -1575,7 +1889,9 @@ def phase_longform(rvc) -> dict:
         stages["dispatch (convert_batch, deferred)"] = cuda_ms(
             lambda: bc.convert_batch(batch, defer=True))
         stages["f0 program"] = cuda_ms(lambda: p.f0(audio, 0.0, 0.0))
-        stages["HuBERT"] = cuda_ms(lambda: p.hubert(audio, output_hidden_states=True))
+        hubert = p.models(compute_dtype(rvc.device))[0]
+        audio_c = audio.to(compute_dtype(rvc.device))
+        stages["HuBERT"] = cuda_ms(lambda: hubert(audio_c, output_hidden_states=True))
     t0 = time.perf_counter()
     with record_calls() as calls:
         bc.convert_batch(batch)
@@ -1664,8 +1980,12 @@ def block_stages(vc) -> dict:
     from rvc_tpu_torch.utils import audio as audio_utils
     from rvc_tpu_torch.utils.device import to_device
 
+    from rvc_tpu_torch.utils.device import compute_dtype
+
     rt = vc.vc_model
     p = rt.rvc.pipeline
+    dtype = compute_dtype(p.device)
+    hubert = p.models(dtype)[0]
     fn = rt._get_block_program(False)
     L, F = len(rt.convert_buffer), rt.convert_feature_size
     buf = np.pad(rt.convert_buffer, (0, rt._block_pad), mode="reflect")
@@ -1676,15 +1996,16 @@ def block_stages(vc) -> dict:
         tail = audio[:, rt.silence_front_frames * 160: L]
         st["block program"] = cuda_ms(lambda: fn(audio, state, sid, 0.5, 0.0, 0.0))
         st["  tail f0 (K4, RMVPE)"] = cuda_ms(lambda: p.f0(tail, 0.0, 0.0))
-        st["  HuBERT"] = cuda_ms(lambda: p.hubert(audio, output_hidden_states=True))
-        feats = p.hubert(audio, output_hidden_states=True)
+        audio_c = audio.to(dtype)
+        st["  HuBERT"] = cuda_ms(lambda: hubert(audio_c, output_hidden_states=True))
+        feats = hubert(audio_c, output_hidden_states=True)
         t_feat = feats.shape[1] * 2
         pf = torch.nn.functional.pad(state[:, :t_feat], (0, max(0, t_feat - F)))
         lengths = torch.full((1,), min(F, t_feat), device=p.device)
         st["  synthesizer (K3, K1, K2)"] = cuda_ms(
             lambda: p._synthesize(feats, feats, lengths, sid, 0.5, coarse_f0_torch(pf), pf))
         traces = {"tail f0": trace_one(lambda: p.f0(tail, 0.0, 0.0)),
-                  "HuBERT": trace_one(lambda: p.hubert(audio, output_hidden_states=True)),
+                  "HuBERT": trace_one(lambda: hubert(audio_c, output_hidden_states=True)),
                   "synthesizer": trace_one(lambda: p._synthesize(
                       feats, feats, lengths, sid, 0.5, coarse_f0_torch(pf), pf))}
     block48 = np.zeros(vc.block_frame, np.float32)
@@ -1708,7 +2029,8 @@ def block_stages(vc) -> dict:
                                                   mode="reflect")),
             "upload (pinned, synchronised)": host_ms(upload),
             "SOLA (scipy)": host_ms(lambda: sola_offset_scipy(conv, vc.sola_buffer))}
-    return {"device_ms": st, "traces": traces, "host_ms": host, "t_feat": t_feat}
+    return {"policy": policy(p.device), "device_ms": st, "traces": traces, "host_ms": host,
+            "t_feat": t_feat}
 
 
 def trace_one(fn, top: int = 0) -> dict:
@@ -1853,16 +2175,20 @@ def phase_realtime(rvc, cpu_rvc, index_path: str) -> dict:
     for i in range(4):
         b = clip[i * bf: (i + 1) * bf]
         got = {}
-        for k, e in eng.items():
-            os.environ["RVC_TPU_RT_FUSED"] = k
-            got[k] = e.inference(b, index_rate=0.0)[0]
+        # the routes compared on one policy: the staged path runs float32
+        # (as the reference's), so the fused block does too here
+        with env("RVC_TPU_BF16", "0"):
+            for k, e in eng.items():
+                os.environ["RVC_TPU_RT_FUSED"] = k
+                got[k] = e.inference(b, index_rate=0.0)[0]
         os.environ["RVC_TPU_RT_FUSED"] = "1"
         corr.append(float(np.corrcoef(got["0"], got["1"])[0, 1]))
         max_abs = float(np.abs(got["0"] - got["1"]).max())
         if not (corr[-1] > 0.999 and max_abs <= 5e-3):
             raise AssertionError(f"block {i}: staged against fused corr {corr[-1]}, "
                                  f"max |d| {max_abs}")
-    checks["staged_vs_fused"] = {"blocks": 4, "min_corr": min(corr), "max_abs_last": max_abs}
+    checks["staged_vs_fused"] = {"blocks": 4, "policy": "float32", "min_corr": min(corr),
+                                 "max_abs_last": max_abs}
 
     sil = VoiceChanger(rvc, silent_threshold=RT_GATE_DB)
     zeros = np.zeros(bf, np.float32)
@@ -1894,8 +2220,9 @@ def phase_realtime(rvc, cpu_rvc, index_path: str) -> dict:
         corr.append(float(np.corrcoef(g, c)[0, 1]))
         if not corr[-1] > 0.99:
             raise AssertionError(f"block {i}: the card against the host, corr {corr[-1]}")
-    checks["gpu_vs_cpu"] = {"blocks": 4, "min_corr": min(corr), "cpu_seconds":
-                            time.perf_counter() - t0}
+    checks["gpu_vs_cpu"] = {"blocks": 4, "card_policy": policy(rvc.device),
+                            "cpu_policy": policy("cpu"), "min_corr": min(corr),
+                            "cpu_seconds": time.perf_counter() - t0}
     p.source_noise = True
 
     # retrieval: the retrieval phase's 60,000-vector index at index_rate 0.75,
@@ -3303,7 +3630,7 @@ def main() -> int:
     emit({"phase": "pipeline", "clip_s": CLIP_S, "first_call_ms": warm_ms,
           "wall_ms": wall_ms, "realtime_x": CLIP_S * 1e3 / wall_ms,
           "out_samples": len(out), "peak": float(np.abs(out).max()),
-          "launches": launches,
+          "policy": policy(rvc.device), "launches": launches,
           "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
     if len(out) != want or not np.isfinite(out).all():
         raise AssertionError(f"pipeline output: {len(out)} samples (want {want}), "
@@ -3329,10 +3656,12 @@ def main() -> int:
         raise AssertionError(f"GPU gave {len(gpu)} samples, CPU {len(cpu)}")
     corr = float(np.corrcoef(gpu, cpu)[0, 1])
     emit({"phase": "parity", "clip_s": PARITY_S, "samples": len(gpu),
+          "card_policy": policy(rvc.device), "cpu_policy": policy("cpu"),
           "waveform_corr": corr, "max_abs": float(np.abs(gpu - cpu).max()),
           "cpu_seconds": time.perf_counter() - t0})
     if not corr > 0.99:
         raise AssertionError(f"GPU vs CPU waveform corr {corr}")
+    k3_f32, bf16_launches = phase_bf16(rvc, cpu_rvc)
 
     # the model's files (.pth, .index) live in the git-ignored build directory;
     # the retrieval phase's index is kept for the frontends phase
@@ -3372,8 +3701,11 @@ def main() -> int:
                                      **{k: v[name] for k, v in ddp_launches.items()},
                                      **{k: v[name] for k, v in tp_launches.items()},
                                      **{k: v[name] for k, v in nccl_launches.items()},
-                                     **{k: v[name] for k, v in frontend_launches.items()}}
-    summary += tp_summary + [packed_summary]
+                                     **{k: v[name] for k, v in frontend_launches.items()},
+                                     **{k: v[name] for k, v in bf16_launches.items()}}
+    # one counter for both entries: the float32 line's own run is the float32 one
+    k3_f32["launches_by_path"] = {"f32_main": bf16_launches["f32_main"]["rel_attention"]}
+    summary += [k3_f32] + tp_summary + [packed_summary]
 
     emit({"kernels": summary})
     print(card, flush=True)

@@ -46,13 +46,32 @@
 //    Key tiles at or past the length are skipped: their -1e4 scores underflow
 //    to exactly 0 beside any valid key (the whole range runs when the length
 //    is 0, as the plain version's uniform row).
+//  - bf16 rows (rvc_rel_attention_bf16, the TextEncoder under the bf16
+//    compute policy): the same kernels instantiated on the element type. The
+//    TPU kernel casts its inputs to float32 and its output back outside the
+//    pallas_call (attention.py:103-113, :146); here the casts ride the loads
+//    and the store, so a call stays three launches. Q converts as it is read;
+//    K and V land by cp.async in a double-buffered bf16 staging ring (half the
+//    bytes of a float32 tile) and each thread converts the chunks it copied
+//    into one float32 K / V tile, then the block computes exactly as in
+//    float32 (one more barrier a tile). The band reads bf16 emb_rel_k, the
+//    merge bf16 emb_rel_v, and the merge rounds the output to bf16 (round to
+//    nearest even, as torch's cast). The scratch stays float32.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
+
+using bf16 = __nv_bfloat16;
+
+template <typename TI>
+constexpr bool kBf16 = std::is_same<TI, bf16>::value;
 
 constexpr int BQ = 64;          // query rows per block
 constexpr int BK = 32;          // keys per tile
@@ -68,13 +87,48 @@ struct Strides {
   long long b, h, t;
 };
 
-// shared floats: Q, K x 2, V x 2, P^T, alpha, band bias, band logits
+// shared floats: Q, K x 2, V x 2, P^T, alpha, band bias, band logits; for bf16
+// rows one float32 K and V tile, then the bf16 staging ring (K x 2, V x 2)
+template <typename TI>
 __host__ __device__ constexpr size_t smem_floats(int D, int NW) {
-  return (size_t)BQ * (D + 4) + 2 * BK * (D + 4) + 2 * BK * D + BK * PS + BQ +
-         2 * BQ * NW;
+  return (size_t)BQ * (D + 4) + (kBf16<TI> ? 1 : 2) * (BK * (D + 4) + BK * D) + BK * PS +
+         BQ + 2 * BQ * NW + (kBf16<TI> ? 2 * BK * D : 0);
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool pred) {
+// 8 bf16 (one 16-byte word) -> two float4, exactly
+__device__ __forceinline__ void bf16x8_to_float(uint4 r, float4& a, float4& b) {
+  a = make_float4(__uint_as_float(r.x << 16), __uint_as_float(r.x & 0xffff0000u),
+                  __uint_as_float(r.y << 16), __uint_as_float(r.y & 0xffff0000u));
+  b = make_float4(__uint_as_float(r.z << 16), __uint_as_float(r.z & 0xffff0000u),
+                  __uint_as_float(r.w << 16), __uint_as_float(r.w & 0xffff0000u));
+}
+
+// 4 elements from a 4-element-aligned address, as float4
+__device__ __forceinline__ float4 ldg4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float4 ldg4(const bf16* p) {
+  const uint2 r = __ldg(reinterpret_cast<const uint2*>(p));
+  return make_float4(__uint_as_float(r.x << 16), __uint_as_float(r.x & 0xffff0000u),
+                     __uint_as_float(r.y << 16), __uint_as_float(r.y & 0xffff0000u));
+}
+
+__device__ __forceinline__ float ldg1(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ldg1(const bf16* p) {
+  return __uint_as_float((unsigned)__ldg(reinterpret_cast<const unsigned short*>(p)) << 16);
+}
+
+__device__ __forceinline__ void store1(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store1(bf16* p, float x) { *p = __float2bfloat16_rn(x); }
+
+__device__ __forceinline__ void scale4(float4& x, float s) {
+  x.x *= s;
+  x.y *= s;
+  x.z *= s;
+  x.w *= s;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
   const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
                "r"(pred ? 16 : 0));
@@ -118,26 +172,31 @@ __device__ __forceinline__ void axpy4(float a, float4 x, float4& y) {
 // One block: 64 query rows of head (b, h), key tiles [kt0, kt1) of its split.
 // Writes part_o (S, BH, T, D) unnormalised, part_ml (S, BH, T, 2) = (m, l) and
 // part_bl (S, BH, T, NW) = the band logits of its keys (-inf elsewhere).
-template <int D>
+// TI: the rows' element type (float or bf16); the arithmetic is float32.
+template <int D, typename TI>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) rel_attn_split_kernel(
-    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    const float* __restrict__ ek,  // (HE, NW, D)
+    const TI* __restrict__ q, const TI* __restrict__ k, const TI* __restrict__ v,
+    const TI* __restrict__ ek,  // (HE, NW, D)
     int ek_head_stride,            // 0 when one table serves every head
     const int* __restrict__ lens,  // (B,)
     float* __restrict__ part_o, float* __restrict__ part_ml, float* __restrict__ part_bl,
     int H, int T, int w, int S, float scale) {
   constexpr int QS = D + 4;
   constexpr int D4 = D / 4;
+  constexpr int D8 = D / 8;
   constexpr int DC = D / 32;  // float4 of O per thread and row
+  constexpr int NB = kBf16<TI> ? 1 : 2;  // float32 K / V tiles
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;
   float* Ks = Qs + BQ * QS;
-  float* Vs = Ks + 2 * BK * QS;
-  float* Pt = Vs + 2 * BK * D;
+  float* Vs = Ks + NB * BK * QS;
+  float* Pt = Vs + NB * BK * D;
   float* As = Pt + BK * PS;
   const int NW = 2 * w + 1;
   float* Bb = As + BQ;
   float* Bl = Bb + BQ * NW;
+  bf16* Sk = reinterpret_cast<bf16*>(Bl + BQ * NW);  // bf16 rows: the staging ring
+  bf16* Sv = Sk + 2 * BK * D;
 
   const int tid = threadIdx.x;
   const int rg = tid / 8, kg = tid % 8;  // scores: rows rg + 16i, keys kg + 8j
@@ -152,34 +211,76 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) rel_attn_split_kernel(
   const int per = (n_kt + S - 1) / S;
   const int kt0 = min(split * per, n_kt), kt1 = min(kt0 + per, n_kt);
   const size_t head = (size_t)bh * T * D;
-  const float* qb = q + head;
-  const float* kb = k + head;
-  const float* vb = v + head;
+  const TI* qb = q + head;
+  const TI* kb = k + head;
+  const TI* vb = v + head;
 
+  // tile kt in flight: float32 rows straight into float32 tile `buf`; bf16
+  // rows into staging slot `buf` (`convert_kv` lands them as float32)
   auto load_kv = [&](int kt, int buf) {
     const int k0 = kt * BK;
-    float* Kd = Ks + buf * BK * QS;
-    float* Vd = Vs + buf * BK * D;
-    for (int i = tid; i < BK * D4; i += THREADS) {
-      const int r = i / D4, c = (i % D4) * 4;
-      const bool ok = k0 + r < T;
-      const size_t u = ok ? k0 + r : 0;
-      cp_async16(Kd + r * QS + c, kb + u * D + c, ok);
-      cp_async16(Vd + r * D + c, vb + u * D + c, ok);
+    if constexpr (kBf16<TI>) {
+      bf16* Kd = Sk + buf * BK * D;
+      bf16* Vd = Sv + buf * BK * D;
+      for (int i = tid; i < BK * D8; i += THREADS) {
+        const int r = i / D8, c = (i % D8) * 8;
+        const bool ok = k0 + r < T;
+        const size_t u = ok ? k0 + r : 0;
+        cp_async16(Kd + r * D + c, kb + u * D + c, ok);
+        cp_async16(Vd + r * D + c, vb + u * D + c, ok);
+      }
+    } else {
+      float* Kd = Ks + buf * BK * QS;
+      float* Vd = Vs + buf * BK * D;
+      for (int i = tid; i < BK * D4; i += THREADS) {
+        const int r = i / D4, c = (i % D4) * 4;
+        const bool ok = k0 + r < T;
+        const size_t u = ok ? k0 + r : 0;
+        cp_async16(Kd + r * QS + c, kb + u * D + c, ok);
+        cp_async16(Vd + r * D + c, vb + u * D + c, ok);
+      }
     }
     cp_async_commit();
   };
+  // bf16 rows: the chunks this thread copied into staging slot `buf`, as
+  // float32 into the K / V tile (the same loop as load_kv, so no other
+  // thread's copies are read)
+  auto convert_kv = [&](int buf) {
+    const bf16* Kd = Sk + buf * BK * D;
+    const bf16* Vd = Sv + buf * BK * D;
+    for (int i = tid; i < BK * D8; i += THREADS) {
+      const int r = i / D8, c = (i % D8) * 8;
+      float4 lo, hi;
+      bf16x8_to_float(*reinterpret_cast<const uint4*>(Kd + r * D + c), lo, hi);
+      *reinterpret_cast<float4*>(Ks + r * QS + c) = lo;
+      *reinterpret_cast<float4*>(Ks + r * QS + c + 4) = hi;
+      bf16x8_to_float(*reinterpret_cast<const uint4*>(Vd + r * D + c), lo, hi);
+      *reinterpret_cast<float4*>(Vs + r * D + c) = lo;
+      *reinterpret_cast<float4*>(Vs + r * D + c + 4) = hi;
+    }
+  };
   if (kt0 < kt1) load_kv(kt0, 0);
 
-  for (int i = tid; i < BQ * D4; i += THREADS) {
-    const int r = i / D4, c = (i % D4) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (q0 + r < T) x = __ldg(reinterpret_cast<const float4*>(qb + (size_t)(q0 + r) * D + c));
-    x.x *= scale;
-    x.y *= scale;
-    x.z *= scale;
-    x.w *= scale;
-    *reinterpret_cast<float4*>(Qs + r * QS + c) = x;
+  if constexpr (kBf16<TI>) {
+    for (int i = tid; i < BQ * D8; i += THREADS) {
+      const int r = i / D8, c = (i % D8) * 8;
+      float4 lo = make_float4(0.f, 0.f, 0.f, 0.f), hi = lo;
+      if (q0 + r < T)
+        bf16x8_to_float(__ldg(reinterpret_cast<const uint4*>(qb + (size_t)(q0 + r) * D + c)),
+                        lo, hi);
+      scale4(lo, scale);
+      scale4(hi, scale);
+      *reinterpret_cast<float4*>(Qs + r * QS + c) = lo;
+      *reinterpret_cast<float4*>(Qs + r * QS + c + 4) = hi;
+    }
+  } else {
+    for (int i = tid; i < BQ * D4; i += THREADS) {
+      const int r = i / D4, c = (i % D4) * 4;
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (q0 + r < T) x = ldg4(qb + (size_t)(q0 + r) * D + c);
+      scale4(x, scale);
+      *reinterpret_cast<float4*>(Qs + r * QS + c) = x;
+    }
   }
   for (int i = tid; i < BQ * NW; i += THREADS) Bl[i] = -INFINITY;
   // do this split's keys reach the band |u - t| <= w of the block's rows?
@@ -187,18 +288,18 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) rel_attn_split_kernel(
       kt0 < kt1 && kt0 * BK <= q0 + BQ - 1 + w && kt1 * BK - 1 >= q0 - w;
   __syncthreads();
   if (has_band) {
-    const float* e = ek + h * ek_head_stride;
+    const TI* e = ek + h * ek_head_stride;
     for (int i = tid; i < BQ * NW; i += THREADS) {
       const int r = i / NW, j = i % NW;
       const float* qr = Qs + r * QS;
-      const float* ej = e + j * D;
+      const TI* ej = e + j * D;
       float acc[4] = {0.f, 0.f, 0.f, 0.f};  // four chains, not one of D FMAs
 #pragma unroll
       for (int d = 0; d < D; d += 16)
 #pragma unroll
         for (int c = 0; c < 4; ++c)
           acc[c] = dot4(*reinterpret_cast<const float4*>(qr + d + 4 * c),
-                        __ldg(reinterpret_cast<const float4*>(ej + d + 4 * c)), acc[c]);
+                        ldg4(ej + d + 4 * c), acc[c]);
       Bb[i] = (acc[0] + acc[1]) + (acc[2] + acc[3]);
     }
   }
@@ -219,9 +320,11 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) rel_attn_split_kernel(
     // tile kt (and, the first time, the band bias) in place; every warp is
     // done with tile kt - 1, so its buffers and P^T are free
     __syncthreads();
+    if constexpr (kBf16<TI>) convert_kv(buf);
     if (kt + 1 < kt1) load_kv(kt + 1, buf ^ 1);
-    const float* Kt = Ks + buf * BK * QS;
-    const float* Vt = Vs + buf * BK * D;
+    if constexpr (kBf16<TI>) __syncthreads();  // the float32 tile in place
+    const float* Kt = Ks + (kBf16<TI> ? 0 : buf) * BK * QS;
+    const float* Vt = Vs + (kBf16<TI> ? 0 : buf) * BK * D;
     const int k0 = kt * BK;
 
     float s[4][4];
@@ -328,13 +431,13 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) rel_attn_split_kernel(
 }
 
 // One warp per (b, h, t): merge the S splits by log-sum-exp, normalise, add
-// the band weights times emb_rel_v, write out through its strides.
-template <int D>
+// the band weights times emb_rel_v, write out (in TI) through its strides.
+template <int D, typename TI>
 __global__ void __launch_bounds__(MERGE_WARPS * 32) rel_attn_merge_kernel(
     const float* __restrict__ part_o, const float* __restrict__ part_ml,
     const float* __restrict__ part_bl,
-    const float* __restrict__ ev,  // (HE, NW, D)
-    int ev_head_stride, float* __restrict__ out, Strides os, int BH, int H, int T, int w,
+    const TI* __restrict__ ev,  // (HE, NW, D)
+    int ev_head_stride, TI* __restrict__ out, Strides os, int BH, int H, int T, int w,
     int S) {
   constexpr int DC = D / 32;
   const int lane = threadIdx.x % 32;
@@ -374,14 +477,14 @@ __global__ void __launch_bounds__(MERGE_WARPS * 32) rel_attn_merge_kernel(
     for (int s = 0; s < S; ++s) bl = fmaxf(bl, part_bl[(s * split_rows + row) * NW + lane]);
     bw = expf(bl - M) * inv;
   }
-  const float* e = ev + h * ev_head_stride;
-  float* orow = out + b * os.b + h * os.h + t * os.t;
+  const TI* e = ev + h * ev_head_stride;
+  TI* orow = out + b * os.b + h * os.h + t * os.t;
 #pragma unroll
   for (int c = 0; c < DC; ++c) {
     float r = acc[c] * inv;
     for (int j = 0; j < NW; ++j)
-      r = fmaf(__shfl_sync(FULL, bw, j), __ldg(e + j * D + lane + 32 * c), r);
-    orow[lane + 32 * c] = r;
+      r = fmaf(__shfl_sync(FULL, bw, j), ldg1(e + j * D + lane + 32 * c), r);
+    store1(orow + lane + 32 * c, r);
   }
 }
 
@@ -390,24 +493,24 @@ struct Plan {
 };
 
 // the opt-in shared memory limit, set once for each instantiation
-template <int D>
+template <int D, typename TI>
 cudaError_t smem_attr() {
   static const cudaError_t attr = cudaFuncSetAttribute(
-      rel_attn_split_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)(smem_floats(D, MAX_NW) * sizeof(float)));
+      rel_attn_split_kernel<D, TI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)(smem_floats<TI>(D, MAX_NW) * sizeof(float)));
   return attr;
 }
 
-template <int D>
+template <int D, typename TI>
 cudaError_t make_plan(int BH, int T, int w, Plan* p) {
-  cudaError_t err = smem_attr<D>();
+  cudaError_t err = smem_attr<D, TI>();
   int dev = 0;
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&p->sms, cudaDevAttrMultiProcessorCount, dev);
-  p->smem_bytes = (int)(smem_floats(D, 2 * w + 1) * sizeof(float));
+  p->smem_bytes = (int)(smem_floats<TI>(D, 2 * w + 1) * sizeof(float));
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&p->blocks_per_sm,
-                                                        rel_attn_split_kernel<D>, THREADS,
+                                                        rel_attn_split_kernel<D, TI>, THREADS,
                                                         p->smem_bytes);
   if (err != cudaSuccess) return err;
   // enough key splits to fill every block slot once, at least one tile each
@@ -422,48 +525,42 @@ cudaError_t make_plan(int BH, int T, int w, Plan* p) {
   return cudaSuccess;
 }
 
-template <int D>
-cudaError_t launch(const float* q, const float* k, const float* v, const float* ek,
-                   const float* ev, int e_heads, const int* lens, float* out, float* work,
-                   int B, int H, int T, int w, int S, const long long* ost,
-                   cudaStream_t stream) {
-  cudaError_t err = smem_attr<D>();
+template <int D, typename TI>
+cudaError_t launch(const TI* q, const TI* k, const TI* v, const TI* ek, const TI* ev,
+                   int e_heads, const int* lens, TI* out, float* work, int B, int H, int T,
+                   int w, int S, const long long* ost, cudaStream_t stream) {
+  cudaError_t err = smem_attr<D, TI>();
   if (err != cudaSuccess) return err;
   const int BH = B * H, NW = 2 * w + 1;
-  const int smem = (int)(smem_floats(D, NW) * sizeof(float));
+  const int smem = (int)(smem_floats<TI>(D, NW) * sizeof(float));
   const int e_stride = e_heads == 1 ? 0 : NW * D;
   float* part_o = work;
   float* part_ml = part_o + (size_t)S * BH * T * D;
   float* part_bl = part_ml + (size_t)S * BH * T * 2;
   const Strides os{ost[0], ost[1], ost[2]};
   const dim3 grid((T + BQ - 1) / BQ, BH, S);
-  rel_attn_split_kernel<D><<<grid, THREADS, smem, stream>>>(
+  rel_attn_split_kernel<D, TI><<<grid, THREADS, smem, stream>>>(
       q, k, v, ek, e_stride, lens, part_o, part_ml, part_bl, H, T, w, S,
       1.f / sqrtf((float)D));
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int rows = BH * T;
-  rel_attn_merge_kernel<D><<<(rows + MERGE_WARPS - 1) / MERGE_WARPS, MERGE_WARPS * 32, 0,
-                             stream>>>(part_o, part_ml, part_bl, ev, e_stride, out, os, BH,
-                                       H, T, w, S);
+  rel_attn_merge_kernel<D, TI><<<(rows + MERGE_WARPS - 1) / MERGE_WARPS, MERGE_WARPS * 32,
+                                 0, stream>>>(part_o, part_ml, part_bl, ev, e_stride, out, os,
+                                              BH, H, T, w, S);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// The launch plan for (B*H, T, D, w): plan = {splits, blocks, blocks per SM,
-// SMs, shared bytes a block}. The wrapper sizes the scratch of rvc_rel_attention
-// from splits: splits * BH * T * (D + 2 + 2w+1) floats. Returns a CUDA error
-// (cudaErrorInvalidValue for a D or w the kernel does not take).
-extern "C" int rvc_rel_attention_plan(int BH, int T, int D, int w, int* plan) {
+template <typename TI>
+int plan_for(int BH, int T, int D, int w, int* plan) {
   if (2 * w + 1 > MAX_NW || w < 0) return (int)cudaErrorInvalidValue;
   Plan p;
   cudaError_t err;
   switch (D) {
-    case 32: err = make_plan<32>(BH, T, w, &p); break;
-    case 64: err = make_plan<64>(BH, T, w, &p); break;
-    case 96: err = make_plan<96>(BH, T, w, &p); break;
-    case 128: err = make_plan<128>(BH, T, w, &p); break;
+    case 32: err = make_plan<32, TI>(BH, T, w, &p); break;
+    case 64: err = make_plan<64, TI>(BH, T, w, &p); break;
+    case 96: err = make_plan<96, TI>(BH, T, w, &p); break;
+    case 128: err = make_plan<128, TI>(BH, T, w, &p); break;
     default: return (int)cudaErrorInvalidValue;
   }
   if (err != cudaSuccess) return (int)err;
@@ -473,6 +570,32 @@ extern "C" int rvc_rel_attention_plan(int BH, int T, int D, int w, int* plan) {
   plan[3] = p.sms;
   plan[4] = p.smem_bytes;
   return 0;
+}
+
+template <typename TI>
+int run(const TI* q, const TI* k, const TI* v, const TI* ek, const TI* ev, const int* lens,
+        TI* out, float* work, int B, int H, int T, int D, int w, int e_heads, int splits,
+        const long long* ost, cudaStream_t stream) {
+  if (2 * w + 1 > MAX_NW || w < 0 || splits < 1 || splits > MAX_SPLITS)
+    return (int)cudaErrorInvalidValue;
+  switch (D) {
+    case 32: return (int)launch<32>(q, k, v, ek, ev, e_heads, lens, out, work, B, H, T, w, splits, ost, stream);
+    case 64: return (int)launch<64>(q, k, v, ek, ev, e_heads, lens, out, work, B, H, T, w, splits, ost, stream);
+    case 96: return (int)launch<96>(q, k, v, ek, ev, e_heads, lens, out, work, B, H, T, w, splits, ost, stream);
+    case 128: return (int)launch<128>(q, k, v, ek, ev, e_heads, lens, out, work, B, H, T, w, splits, ost, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// The launch plan for (B*H, T, D, w) on float32 (bf16 = 0) or bf16 rows:
+// plan = {splits, blocks, blocks per SM, SMs, shared bytes a block}. The
+// wrapper sizes the scratch of rvc_rel_attention(_bf16) from splits: splits *
+// BH * T * (D + 2 + 2w+1) floats. Returns a CUDA error (cudaErrorInvalidValue
+// for a D or w the kernel does not take).
+extern "C" int rvc_rel_attention_plan(int BH, int T, int D, int w, int bf16_rows, int* plan) {
+  return bf16_rows ? plan_for<bf16>(BH, T, D, w, plan) : plan_for<float>(BH, T, D, w, plan);
 }
 
 // q, k, v: contiguous (B, H, T, D) float32, 16-byte aligned. out: a (B, H, T,
@@ -487,13 +610,17 @@ extern "C" int rvc_rel_attention(const float* q, const float* k, const float* v,
                                  float* out, float* work, int B, int H, int T, int D, int w,
                                  int e_heads, int splits, const long long* out_strides,
                                  cudaStream_t stream) {
-  if (2 * w + 1 > MAX_NW || w < 0 || splits < 1 || splits > MAX_SPLITS)
-    return (int)cudaErrorInvalidValue;
-  switch (D) {
-    case 32: return (int)launch<32>(q, k, v, ek, ev, e_heads, lens, out, work, B, H, T, w, splits, out_strides, stream);
-    case 64: return (int)launch<64>(q, k, v, ek, ev, e_heads, lens, out, work, B, H, T, w, splits, out_strides, stream);
-    case 96: return (int)launch<96>(q, k, v, ek, ev, e_heads, lens, out, work, B, H, T, w, splits, out_strides, stream);
-    case 128: return (int)launch<128>(q, k, v, ek, ev, e_heads, lens, out, work, B, H, T, w, splits, out_strides, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return run<float>(q, k, v, ek, ev, lens, out, work, B, H, T, D, w, e_heads, splits,
+                    out_strides, stream);
+}
+
+// rvc_rel_attention on bf16 rows: q, k, v, ek, ev and out bf16 (the same
+// layouts), the scratch float32. Two launches.
+extern "C" int rvc_rel_attention_bf16(const bf16* q, const bf16* k, const bf16* v,
+                                      const bf16* ek, const bf16* ev, const int* lens,
+                                      bf16* out, float* work, int B, int H, int T, int D,
+                                      int w, int e_heads, int splits,
+                                      const long long* out_strides, cudaStream_t stream) {
+  return run<bf16>(q, k, v, ek, ev, lens, out, work, B, H, T, D, w, e_heads, splits,
+                   out_strides, stream);
 }

@@ -128,7 +128,8 @@ class AttentionEncoder(nn.Module):
         self.norm_layers_2 = nn.ModuleList(LayerNorm(hidden_channels) for _ in range(n_layers))
 
     def forward(self, x: torch.Tensor, x_mask: torch.Tensor) -> torch.Tensor:
-        key_lens = x_mask[:, :, 0].sum(-1).to(torch.int32)
+        # counted in int32: a bf16 sum of the mask rounds past 256
+        key_lens = x_mask[:, :, 0].sum(-1, dtype=torch.int32)
         x = x * x_mask
         for attn, n1, ffn, n2 in zip(self.attn_layers, self.norm_layers_1,
                                      self.ffn_layers, self.norm_layers_2):

@@ -33,6 +33,21 @@ from rvc_tpu_torch.ops.kernels.resblock import resblock_group, resblock_group_tp
 GROUP_MAX_CHANNELS = 128
 
 
+@torch.no_grad()
+def round_params_bf16_(module: nn.Module) -> nn.Module:
+    """Round every floating parameter of `module` through bf16, in place,
+    keeping float32: the decoder under the bf16 compute policy. The
+    reference casts the whole synthesizer's parameters to bf16 and the
+    decoder upcasts them at use on float32 activations, so its convs, the
+    source's linear, and K1/K2's weights and biases see these values (K1/K2
+    round their weights to bf16 themselves, but take their biases as
+    given)."""
+    for p in module.parameters():
+        if p.is_floating_point():
+            p.copy_(p.to(torch.bfloat16))
+    return module
+
+
 def _stage_resblocks(x: torch.Tensor, blocks: Sequence[ResBlock],
                      kernel_sizes: Tuple[int, ...],
                      dilations: Tuple[Tuple[int, ...], ...]) -> torch.Tensor:

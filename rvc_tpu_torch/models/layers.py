@@ -7,6 +7,13 @@ state dict loads as it is; the forward passes permute them (a view) into
 the reference's layout for `ops.conv`. Linear and Embedding are
 `torch.nn.Linear` / `torch.nn.Embedding`, whose semantics are the
 reference's.
+
+Under the bf16 compute policy (`utils.device.compute_dtype`) the layers
+follow their input's dtype, as the reference's do: a conv casts its
+weight and bias to the input's dtype at use (float32 sums inside cuDNN /
+cuBLAS), and a norm takes its statistics in float32 and returns the
+input's dtype (`rvc_tpu/models/layers.py:147-196`; torch's layer and
+group norms accumulate a bf16 input in float32 themselves).
 """
 
 from __future__ import annotations
@@ -28,6 +35,11 @@ def leaky_relu(x: torch.Tensor, slope: float = LRELU_SLOPE) -> torch.Tensor:
     return torch.where(x >= 0, x, x * slope)
 
 
+def _as(t: Optional[torch.Tensor], x: torch.Tensor) -> Optional[torch.Tensor]:
+    """A parameter in x's dtype (itself when it already is)."""
+    return None if t is None else t.to(x.dtype)
+
+
 def init_normal(module: nn.Module, std: float = 0.01) -> None:
     """Upstream HiFi-GAN `init_weights`: conv weights ~ N(0, std)."""
     for m in module.modules():
@@ -39,7 +51,7 @@ class Conv1d(nn.Conv1d):
     """1-D conv on (B, T, Cin); weight (Cout, Cin // groups, K)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv_ops.conv1d(x, self.weight.permute(2, 1, 0), self.bias,
+        return conv_ops.conv1d(x, _as(self.weight, x).permute(2, 1, 0), _as(self.bias, x),
                                stride=self.stride[0], padding=self.padding[0],
                                dilation=self.dilation[0], groups=self.groups)
 
@@ -49,7 +61,7 @@ class ConvTranspose1d(nn.ConvTranspose1d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return conv_ops.conv_transpose1d(
-            x, self.weight.permute(2, 0, 1), self.bias, stride=self.stride[0],
+            x, _as(self.weight, x).permute(2, 0, 1), _as(self.bias, x), stride=self.stride[0],
             padding=self.padding[0], output_padding=self.output_padding[0])
 
 
@@ -57,7 +69,7 @@ class Conv2d(nn.Conv2d):
     """2-D conv on (B, H, W, Cin); weight (Cout, Cin // groups, KH, KW)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv_ops.conv2d(x, self.weight.permute(2, 3, 1, 0), self.bias,
+        return conv_ops.conv2d(x, _as(self.weight, x).permute(2, 3, 1, 0), _as(self.bias, x),
                                stride=self.stride, padding=self.padding,
                                dilation=self.dilation, groups=self.groups)
 
@@ -67,7 +79,7 @@ class ConvTranspose2d(nn.ConvTranspose2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return conv_ops.conv_transpose2d(
-            x, self.weight.permute(2, 3, 0, 1), self.bias, stride=self.stride,
+            x, _as(self.weight, x).permute(2, 3, 0, 1), _as(self.bias, x), stride=self.stride,
             padding=self.padding, output_padding=self.output_padding)
 
 
@@ -87,7 +99,8 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         inv = torch.rsqrt(self.running_var + self.eps)
-        return (x - self.running_mean) * inv * self.weight + self.bias
+        return ((x.float() - self.running_mean) * inv * self.weight.float()
+                + self.bias.float()).to(x.dtype)
 
 
 class LayerNorm(nn.Module):

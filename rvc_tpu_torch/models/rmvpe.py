@@ -181,7 +181,9 @@ class E2E(nn.Module):
         B, T, M, C = x.shape
         # upstream flattens (B, T, C, M) -> (B, T, C*M)
         x = x.permute(0, 1, 3, 2).reshape(B, T, C * M)
-        return torch.sigmoid(self.fc(x))
+        # the BiGRU / fc / sigmoid head runs float32 whatever the trunk's
+        # dtype (`rvc_tpu/models/rmvpe.py:294-297`)
+        return torch.sigmoid(self.fc(x.float()))
 
 
 @lru_cache(maxsize=4)
@@ -226,14 +228,17 @@ class RMVPE:
         """(B, T) 16 kHz -> (B, 1 + T // 160, 128) log-mel (HTK, 30-8000 Hz): K4."""
         return log_mel(audio, 1024, 160, N_MELS, 16000, 30.0, 8000.0, htk=True)
 
-    def mel2hidden(self, mel: torch.Tensor) -> torch.Tensor:
-        """(B, T, 128) -> salience (B, T, 360), through a reflect pad of the
-        frames to a multiple of 32."""
+    def mel2hidden(self, mel: torch.Tensor,
+                   unet_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """(B, T, 128) -> salience (B, T, 360) float32, through a reflect pad
+        of the frames to a multiple of 32. unet_dtype bf16 casts the padded
+        mel so that the U-Net trunk runs in bf16 (the float32 weights cast at
+        use, norm statistics float32; `RVC_TPU_BF16_F0`)."""
         n_frames = mel.shape[1]
         pad = 32 * ((n_frames - 1) // 32 + 1) - n_frames
         if pad:
             mel = F.pad(mel.transpose(1, 2), (0, pad), mode="reflect").transpose(1, 2)
-        return self.model(mel)[:, :n_frames]
+        return self.model(mel.to(unet_dtype))[:, :n_frames]
 
     def infer_from_audio(self, audio, thred: float = 0.03) -> np.ndarray:
         """audio (T,) or (B, T) 16 kHz -> f0 per frame (hop 160), numpy."""

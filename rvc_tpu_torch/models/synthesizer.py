@@ -15,6 +15,7 @@ model without it.
 
 from __future__ import annotations
 
+import copy
 import os
 from typing import NamedTuple, Optional, Tuple
 
@@ -25,7 +26,11 @@ from torch.utils.checkpoint import checkpoint
 from rvc_tpu_torch.configs import ModelConfig, RVCConfig
 from rvc_tpu_torch.models.encoders import PosteriorEncoder, TextEncoder
 from rvc_tpu_torch.models.flow import ResidualCouplingBlock
-from rvc_tpu_torch.models.generators import HiFiGANGenerator, HiFiGANNSFGenerator
+from rvc_tpu_torch.models.generators import (
+    HiFiGANGenerator,
+    HiFiGANNSFGenerator,
+    round_params_bf16_,
+)
 from rvc_tpu_torch.models.generators_extra import HiFiGANMRFGenerator, RefineGANGenerator
 from rvc_tpu_torch.ops.commons import draw, rand_slice_segments, slice_segments
 
@@ -156,9 +161,26 @@ class Synthesizer(nn.Module):
         g = self.emb_g(sid)[:, None, :]
         m_p, _, x_mask = self.enc_p(phone, pitch, phone_lengths)
         z = self.flow(m_p * x_mask, x_mask, g=g)
+        # the decoder's activations are float32 whatever the compute dtype
+        # (the reference's audio-rate bf16 raised the vocoder's noise floor)
         z, g = (z * x_mask).float(), g.float()
         o = self.dec(z, nsff0, g=g, generator=generator) if self.use_f0 else self.dec(z, g=g)
         return o, x_mask
+
+
+def bf16_copy(model: Synthesizer) -> Synthesizer:
+    """The synthesizer under the bf16 compute policy, a copy beside the
+    float32 model (on its device, no gradients): emb_g, enc_p and the flow
+    in bf16; the decoder float32 on parameters rounded through bf16 (what
+    the reference's parameter cast and the decoder's upcast at use compute,
+    `rvc_tpu/pipelines/offline.py:301-305`, `models/synthesizer.py:159-165`).
+    `infer` then runs enc_p and the flow on bf16 features and the decoder on
+    float32 activations."""
+    out = copy.deepcopy(model).requires_grad_(False)
+    for part in (out.emb_g, out.enc_p, out.flow):
+        part.to(torch.bfloat16)
+    round_params_bf16_(out.dec)
+    return out
 
 
 def build_synthesizer(cfg: RVCConfig, sr: Optional[int] = None, *,

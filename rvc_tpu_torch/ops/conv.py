@@ -12,10 +12,17 @@ permuted (a view, no copy) into `torch.nn.functional`'s:
 The TPU lane rewrites of the reference (`_conv1d_cin1_framed`,
 `_conv1d_cout1_packed`, the polyphase transposed conv) compute the same
 function and have no counterpart here.
+
+A bf16 convolution sums its products in float32, as the reference's
+(`preferred_element_type=float32`) and cuDNN's on the card do. PyTorch's
+CPU kernels do not always (its grouped conv1d sums in bf16: HuBERT's
+positional conv came out at corr 0.75 against float32), so on the CPU a
+bf16 convolution runs on the exact float32 upcasts and rounds its output.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence, Tuple, Union
 
 import torch
@@ -24,12 +31,24 @@ import torch.nn.functional as F
 IntOrPair = Union[int, Tuple[int, int]]
 
 
+def _float32_sums(conv):
+    """`conv` with float32 sums for bf16 on the CPU (see the module note)."""
+    @functools.wraps(conv)
+    def wrapper(x, w, b=None, **kwargs):
+        if x.device.type == "cpu" and x.dtype == torch.bfloat16:
+            return conv(x.float(), w.float(), None if b is None else b.float(),
+                        **kwargs).to(x.dtype)
+        return conv(x, w, b, **kwargs)
+    return wrapper
+
+
 def _pair(v) -> Tuple[int, int]:
     if isinstance(v, (tuple, list)):
         return (int(v[0]), int(v[1]))
     return (int(v), int(v))
 
 
+@_float32_sums
 def conv1d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None, *,
            stride: int = 1, padding: IntOrPair = 0, dilation: int = 1,
            groups: int = 1) -> torch.Tensor:
@@ -44,6 +63,7 @@ def conv1d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None, *
     return out.transpose(1, 2)
 
 
+@_float32_sums
 def conv_transpose1d(x: torch.Tensor, w: torch.Tensor,
                      b: Optional[torch.Tensor] = None, *, stride: int = 1,
                      padding: int = 0, output_padding: int = 0) -> torch.Tensor:
@@ -55,6 +75,7 @@ def conv_transpose1d(x: torch.Tensor, w: torch.Tensor,
     return out.transpose(1, 2)
 
 
+@_float32_sums
 def conv2d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None, *,
            stride: IntOrPair = 1,
            padding: Union[IntOrPair, Sequence[Tuple[int, int]]] = 0,
@@ -76,6 +97,7 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None, *
     return out.permute(0, 2, 3, 1)
 
 
+@_float32_sums
 def conv_transpose2d(x: torch.Tensor, w: torch.Tensor,
                      b: Optional[torch.Tensor] = None, *,
                      stride: IntOrPair = 1, padding: IntOrPair = 0,

@@ -23,6 +23,15 @@ forward is the kernel, the backward the float32 plain version's autograd,
 re-run from the saved inputs (the reference's `_bwd`): gradients of q, k,
 v, emb_rel_k and emb_rel_v, none of key_lens. The garbage rows take no
 gradient, since every caller multiplies them away.
+
+bf16 rows (the TextEncoder under the bf16 compute policy): q, k, v and
+emb_rel_* all bf16, the output bf16. The TPU kernel casts to float32 and
+back outside its `pallas_call`; here the kernel's bf16 instantiation reads
+bf16 rows (the row copy moves half the bytes), computes in float32 and
+rounds the output, still three launches under K3's counter. The plain
+version computes such a call in float32 and rounds to bf16. A bf16 call
+has no backward (training runs float32): asking for a gradient through
+one raises.
 """
 
 from __future__ import annotations
@@ -42,24 +51,26 @@ MAX_WINDOW = 15          # 2w + 1 <= 31
 
 @functools.cache
 def _lib():
-    """The kernel's C entries, with their ctypes signatures set once."""
+    """The kernel's C entries, with their ctypes signatures set once: the
+    plan, and the launch by row dtype."""
     lib = build.load("rel_attention")
     plan = lib.rvc_rel_attention_plan
-    plan.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    plan.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
     plan.restype = ctypes.c_int
-    run = lib.rvc_rel_attention
-    run.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2
-    run.restype = ctypes.c_int
-    return plan, run
+    runs = {torch.float32: lib.rvc_rel_attention, torch.bfloat16: lib.rvc_rel_attention_bf16}
+    for run in runs.values():
+        run.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2
+        run.restype = ctypes.c_int
+    return plan, runs
 
 
 @functools.cache
-def launch_plan(bh: int, T: int, D: int, w: int) -> dict:
-    """The split kernel's grid for B*H heads of T rows: key splits, blocks,
-    blocks an SM, SMs, shared bytes a block, and waves (blocks over the
-    card's block slots)."""
+def launch_plan(bh: int, T: int, D: int, w: int, bf16: bool = False) -> dict:
+    """The split kernel's grid for B*H heads of T rows (float32 or bf16
+    rows): key splits, blocks, blocks an SM, SMs, shared bytes a block, and
+    waves (blocks over the card's block slots)."""
     buf = (ctypes.c_int * 5)()
-    build.check(_lib()[0](bh, T, D, w, buf), "rel_attention plan")
+    build.check(_lib()[0](bh, T, D, w, int(bf16), buf), "rel_attention plan")
     splits, blocks, per_sm, sms, smem = buf
     return dict(splits=splits, blocks=blocks, blocks_per_sm=per_sm, sms=sms,
                 smem_bytes=smem, waves=blocks / (per_sm * sms))
@@ -68,16 +79,23 @@ def launch_plan(bh: int, T: int, D: int, w: int) -> dict:
 def rel_attention_reference(q, k, v, emb_rel_k, emb_rel_v, window_size: int,
                             key_lens: torch.Tensor) -> torch.Tensor:
     """Plain version of K3: the skew formulation with the key-mask outer
-    product (a fully masked query row softmaxes to uniform)."""
+    product (a fully masked query row softmaxes to uniform). Inputs below
+    float32 (bf16) are computed in float32 and the output rounded to q's
+    dtype, as the TPU kernel's casts do."""
+    ct = torch.promote_types(q.dtype, torch.float32)
     km = sequence_mask(key_lens, q.shape[2])
     attn_mask = km[:, None, None, :] * km[:, None, :, None]
-    return relative_attention_xla(q, k, v, emb_rel_k, emb_rel_v, window_size, attn_mask)
+    out = relative_attention_xla(*(t.to(ct) for t in (q, k, v, emb_rel_k, emb_rel_v)),
+                                 window_size, attn_mask)
+    return out.to(q.dtype)
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, emb_rel_k: torch.Tensor,
             emb_rel_v: torch.Tensor, window_size: int, key_lens: torch.Tensor) -> torch.Tensor:
-    """K3's launch on CUDA tensors (the forward of `RelAttentionFunction`)."""
+    """K3's launch on CUDA tensors, float32 or bf16 rows (the forward of
+    `RelAttentionFunction` for float32)."""
     B, H, T, D = q.shape
+    dtype = q.dtype
     w = window_size
     if q.device.type != "cuda":
         raise ValueError(f"rel_attention: unsupported device {q.device}")
@@ -87,25 +105,27 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, emb_rel_k: torch.
     for name, x in (("k", k), ("v", v)):
         if x.shape != q.shape:
             raise ValueError(f"rel_attention: {name} {tuple(x.shape)} != q {tuple(q.shape)}")
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"rel_attention: takes float32 or bf16 rows, not {dtype}")
     for name, x in (("q", q), ("k", k), ("v", v), ("emb_rel_k", emb_rel_k),
                     ("emb_rel_v", emb_rel_v)):
-        if x.dtype != torch.float32 or x.device != q.device:
-            raise ValueError(f"rel_attention: {name} must be float32 on {q.device}")
+        if x.dtype != dtype or x.device != q.device:
+            raise ValueError(f"rel_attention: {name} must be {dtype} on {q.device}")
     e_heads = emb_rel_k.shape[0]
     if e_heads not in (1, H) or emb_rel_v.shape[0] != e_heads:
         raise ValueError(f"rel_attention: emb_rel_* need 1 or {H} heads")
     q, k, v = torch.stack((q, k, v))
     ek, ev = emb_rel_k.contiguous(), emb_rel_v.contiguous()
     lens = key_lens.to(device=q.device, dtype=torch.int32).contiguous()
-    plan = launch_plan(B * H, T, D, w)
+    plan = launch_plan(B * H, T, D, w, dtype == torch.bfloat16)
     splits = plan["splits"]
     work = torch.empty(splits * B * H * T * (D + 2 + 2 * w + 1), device=q.device)
-    out = torch.empty((B, T, H, D), device=q.device).transpose(1, 2)
+    out = torch.empty((B, T, H, D), device=q.device, dtype=dtype).transpose(1, 2)
     out_strides = (ctypes.c_longlong * 3)(*out.stride()[:3])
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _lib()[1](q.data_ptr(), k.data_ptr(), v.data_ptr(), ek.data_ptr(), ev.data_ptr(),
-                    lens.data_ptr(), out.data_ptr(), work.data_ptr(), B, H, T, D, w,
-                    e_heads, splits, out_strides, stream)
+    err = _lib()[1][dtype](q.data_ptr(), k.data_ptr(), v.data_ptr(), ek.data_ptr(),
+                           ev.data_ptr(), lens.data_ptr(), out.data_ptr(), work.data_ptr(),
+                           B, H, T, D, w, e_heads, splits, out_strides, stream)
     build.check(err, "rel_attention")
     count_launch("rel_attention")
     return out
@@ -136,8 +156,15 @@ def rel_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   emb_rel_k: torch.Tensor, emb_rel_v: torch.Tensor,
                   window_size: int, key_lens: torch.Tensor) -> torch.Tensor:
     """q/k/v (B, H, T, D); emb_rel_* (1 | H, 2w+1, D); key_lens (B,) int ->
-    (B, H, T, D). Query rows at or past a length are garbage."""
+    (B, H, T, D), float32 or bf16 (all five inputs of one dtype). Query rows
+    at or past a length are garbage."""
     if q.device.type == "cpu":
         return rel_attention_reference(q, k, v, emb_rel_k, emb_rel_v, window_size, key_lens)
+    if q.dtype == torch.bfloat16:
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (q, k, v, emb_rel_k, emb_rel_v)):
+            raise RuntimeError("rel_attention: a bf16 call has no backward "
+                               "(training runs float32)")
+        return _launch(q, k, v, emb_rel_k, emb_rel_v, window_size, key_lens)
     return RelAttentionFunction.apply(_launch, window_size, q, k, v, emb_rel_k, emb_rel_v,
                                       key_lens)

@@ -23,8 +23,13 @@ are `Pipeline`'s (`f0`, `_features`, `_synthesize`); the source noise is
 one generator seeded 0x5EED per dispatch, as in `Pipeline`, drawn for the
 whole batch on each device and cut to its rows (`ops.commons.batch_rows`),
 so the output does not depend on the mesh. Audio goes in and comes out
-float32. The reference's bf16 / f16 transfer policy is TPU
-dispatch machinery and is not ported.
+float32. The conversion follows the compute dtype of RVC_TPU_BF16, read
+at each dispatch for each device (`utils.device.compute_dtype`: bf16 by
+default on a card), as the reference's `fn_conv`: HuBERT, the upsample
+and enc_p / flow in bf16 on each replica's own bf16 copies
+(`Pipeline.models`), the decoder float32; the f0 program stays float32
+(the reference's batch f0 ignores RVC_TPU_BF16_F0). Its f16 transfers
+(RVC_TPU_F16_OUT) are TPU dispatch machinery and are not ported.
 
 `convert_long_batch` cuts every utterance into windows of chunk + 2 pad
 seconds of the reflect-padded utterance, queues every group of
@@ -51,7 +56,7 @@ from torch.nn import functional as F
 from rvc_tpu_torch.ops.commons import batch_rows
 from rvc_tpu_torch.parallel.mesh import Mesh, indexed_device
 from rvc_tpu_torch.pipelines.offline import SAMPLE_RATE, WINDOW, Pipeline, coarse_f0_torch
-from rvc_tpu_torch.utils.device import to_device
+from rvc_tpu_torch.utils.device import compute_dtype, to_device
 
 
 def _replica(p: Pipeline, device: torch.device) -> Pipeline:
@@ -91,7 +96,7 @@ class BatchConverter:
             sid = to_device(sids, device)
             f0 = p.f0(x, pitch_shift, 0.0)
             p_len0 = x.shape[1] // WINDOW
-            feats, _ = p._features(x, p_len0, None, 0.0)
+            feats, _ = p._features(x, p_len0, None, 0.0, compute_dtype(device))
             t_feat = feats.shape[1] * 2
             f0 = f0[:, :t_feat] if p_len0 >= t_feat else F.pad(f0, (0, t_feat - p_len0))
             lengths = torch.full((x.shape[0],), t_feat, dtype=torch.int64, device=device)

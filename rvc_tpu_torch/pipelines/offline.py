@@ -20,6 +20,16 @@ dispatch machinery (packing, frozen weights, f16 transfers, async fetch,
 chunk batching) is not ported; batches of equal-length utterances convert
 through `parallel.infer.BatchConverter`, which reuses this module's pieces.
 
+The compute dtype (`utils.device.compute_dtype`, RVC_TPU_BF16 read at each
+chunk) reaches `convert_chunk`'s conversion program, as the reference's
+`_build_fused`: under bf16 the padded audio is rounded to bf16, HuBERT,
+the edge pad, the upsample and protect blend, enc_p and the flow run on
+bf16 copies of the models (`Pipeline.models`, made on the first bf16
+conversion and kept beside the float32 ones), the retrieval searches and
+blends in float32 and rounds back, and the decoder runs float32 on
+bf16-rounded parameters. RVC_TPU_BF16_F0 (`utils.device.bf16_f0`) runs
+`convert_chunk`'s RMVPE U-Net trunk in bf16. The staged path runs float32.
+
 With RVC_TPU_TRACE=1 the stages are timed on the host clock under the
 reference's span names (`utils.profiling.trace_span`): host/highpass,
 dispatch/fused_convert around each fused chunk, and inside it
@@ -31,7 +41,9 @@ normalisation.
 
 from __future__ import annotations
 
+import copy
 import math
+import threading
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -40,11 +52,12 @@ from torch.nn import functional as F
 
 from rvc_tpu_torch.configs import PipelineConfig
 from rvc_tpu_torch.models.rmvpe import RMVPE, decode_salience
-from rvc_tpu_torch.models.synthesizer import SOURCE_NOISE_SEED, source_noise_on
+from rvc_tpu_torch.models.synthesizer import SOURCE_NOISE_SEED, bf16_copy, source_noise_on
 from rvc_tpu_torch.pitch import PitchExtractor, autotune_f0
 from rvc_tpu_torch.pitch.autotune import NOTE_TABLE
 from rvc_tpu_torch.retrieval.ivf import IVFFlatIndex, index_blend
 from rvc_tpu_torch.utils import audio as audio_utils
+from rvc_tpu_torch.utils.device import bf16_f0, compute_dtype
 from rvc_tpu_torch.utils.profiling import trace_span
 
 SAMPLE_RATE = 16000
@@ -99,11 +112,15 @@ def _edge_pad(feats: torch.Tensor, n: int) -> torch.Tensor:
 
 def retrieve(feats: torch.Tensor, index: IVFFlatIndex, index_rate: float) -> torch.Tensor:
     """The retrieval blend of (B, T, C) HuBERT features: every frame's 8
-    nearest index vectors at the index's nprobe, blended in at index_rate."""
+    nearest index vectors at the index's nprobe, blended in at index_rate.
+    The index is float32: bf16 features are searched and blended in float32
+    and the blend rounded back to their dtype (JAX promotes bf16 x float32
+    to float32)."""
     B, T, C = feats.shape
-    q = feats.reshape(B * T, C)
+    q = feats.reshape(B * T, C).float()
     d, i = index.search_device(q, 8)
-    return index_blend(q, index.tensors(q.device)[0][i], d, index_rate).reshape(B, T, C)
+    out = index_blend(q, index.tensors(q.device)[0][i], d, index_rate)
+    return out.reshape(B, T, C).to(feats.dtype)
 
 
 class Pipeline:
@@ -118,7 +135,9 @@ class Pipeline:
     each chunk (the reference's fixed key; torch draws other numbers); off,
     the source is noise-free. source_noise True or False decides; None (the
     default) leaves it to RVC_TPU_SOURCE_NOISE at each call
-    (`models.synthesizer.source_noise_on`).
+    (`models.synthesizer.source_noise_on`). The bf16 copies of HuBERT and
+    the synthesizer (`models`) are made on this pipeline's device on its
+    first bf16 conversion and kept; the float32 modules stay as they are.
     """
 
     def __init__(self, tgt_sr: int, synthesizer, hubert, rmvpe,
@@ -138,14 +157,34 @@ class Pipeline:
         self.t_query = SAMPLE_RATE * self.config.x_query
         self.t_center = SAMPLE_RATE * self.config.x_center
         self.t_max = SAMPLE_RATE * self.config.x_max
+        self._bf16 = None          # (hubert, synthesizer) under the bf16 policy
+        self._bf16_lock = threading.Lock()
+
+    def models(self, dtype: torch.dtype = torch.float32):
+        """(HuBERT, synthesizer) of a conversion in `dtype`: the float32
+        modules, or for bf16 their copies (HuBERT in bf16;
+        `models.synthesizer.bf16_copy`), made from the float32 modules on
+        the first call and kept."""
+        if dtype == torch.float32:
+            return self.hubert, self.synthesizer
+        if dtype != torch.bfloat16:
+            raise ValueError(f"no {dtype} compute policy: float32 or bf16")
+        with self._bf16_lock:      # BatchConverter's threads may share a pipeline
+            if self._bf16 is None:
+                with torch.inference_mode(False), torch.no_grad():
+                    hubert = copy.deepcopy(self.hubert).requires_grad_(False)
+                    self._bf16 = (hubert.to(torch.bfloat16), bf16_copy(self.synthesizer))
+            return self._bf16
 
     # ------------------------------------------------------------------
-    def f0(self, audio: torch.Tensor, pitch_shift: float,
-           autotune_strength: float) -> torch.Tensor:
+    def f0(self, audio: torch.Tensor, pitch_shift: float, autotune_strength: float,
+           unet_dtype: torch.dtype = torch.float32) -> torch.Tensor:
         """The f0 program: padded audio (B, T) -> f0 (B, T // 160); autotune
-        at a strength of 0 is the identity and is skipped."""
+        at a strength of 0 is the identity and is skipped. unet_dtype bf16
+        runs RMVPE's U-Net trunk in bf16 (the log-mel and the head stay
+        float32)."""
         rmvpe = RMVPE(self.rmvpe)
-        hidden = rmvpe.mel2hidden(rmvpe.mel(audio))
+        hidden = rmvpe.mel2hidden(rmvpe.mel(audio), unet_dtype)
         f0 = decode_salience(hidden, 0.03)[:, :audio.shape[1] // WINDOW]
         f0 = torch.where((f0 >= F0_MIN) & (f0 <= F0_MAX), f0, torch.zeros_like(f0))
         if autotune_strength:
@@ -189,11 +228,13 @@ class Pipeline:
         return coarse_f0(f0), f0.astype(np.float32)
 
     def _features(self, audio: torch.Tensor, n_frames: int, index: Optional[IVFFlatIndex],
-                  index_rate: float) -> Tuple[torch.Tensor, torch.Tensor]:
-        """HuBERT features of padded audio (1, T), then the retrieval blend
-        when an index is given at index_rate > 0, both edge-padded so the x2
-        grid covers n_frames 10 ms frames: (feats, feats before retrieval)."""
-        feats = self.hubert(audio, output_hidden_states=True)
+                  index_rate: float, dtype: torch.dtype = torch.float32
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """HuBERT features of padded audio (B, T) rounded to `dtype`, then
+        the retrieval blend when an index is given at index_rate > 0, both
+        edge-padded so the x2 grid covers n_frames 10 ms frames: (feats,
+        feats before retrieval), in `dtype`."""
+        feats = self.models(dtype)[0](audio.to(dtype), output_hidden_states=True)
         feats_raw = feats
         if index is not None and index_rate > 0:
             feats = retrieve(feats, index, index_rate)
@@ -208,7 +249,8 @@ class Pipeline:
                     pitchf: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Features (B, T, C), frame lengths and speaker ids ((B,) on the
         device) and pitch (coarse, f0; (B, 2T) each, or None for an f0-less
-        model) -> wave (B, samples) at the target rate. The source noise
+        model) -> wave (B, samples) float32 at the target rate, through the
+        synthesizer of the features' dtype (`models`). The source noise
         comes from one generator seeded 0x5EED for the call."""
         feats_up = upsample_protect(feats, feats_raw, pitchf,
                                     protect if pitchf is not None else 1.0)
@@ -216,8 +258,9 @@ class Pipeline:
         if pitchf is not None and source_noise_on(self.source_noise):
             generator = torch.Generator(device=self.device)
             generator.manual_seed(SOURCE_NOISE_SEED)
-        wave, _ = self.synthesizer.infer(feats_up, lengths, pitch, pitchf, sids,
-                                         generator=generator)
+        synthesizer = self.models(feats.dtype)[1]
+        wave, _ = synthesizer.infer(feats_up, lengths, pitch, pitchf, sids,
+                                    generator=generator)
         return wave[:, :, 0]
 
     def _one(self, value: int) -> torch.Tensor:
@@ -226,11 +269,12 @@ class Pipeline:
 
     def _convert(self, audio: torch.Tensor, f0: torch.Tensor, sid: int, p_len: int,
                  protect: float, index: Optional[IVFFlatIndex] = None,
-                 index_rate: float = 0.0) -> torch.Tensor:
-        """The conversion program: padded audio (1, T) and its f0 -> wave
-        (1, samples) at the target rate, before the trim."""
+                 index_rate: float = 0.0, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """The conversion program in compute dtype `dtype`: padded audio
+        (1, T) and its f0 -> wave (1, samples) at the target rate, before
+        the trim."""
         p_len0 = audio.shape[1] // WINDOW
-        feats, feats_raw = self._features(audio, p_len0, index, index_rate)
+        feats, feats_raw = self._features(audio, p_len0, index, index_rate, dtype)
         t_feat = feats.shape[1] * 2
         f0 = f0[:, :t_feat] if p_len0 >= t_feat else F.pad(f0, (0, t_feat - p_len0))
         # zero f0 beyond the true (unpadded) frame count
@@ -253,14 +297,18 @@ class Pipeline:
                       trim_frames: int = 0, index: Optional[IVFFlatIndex] = None,
                       index_rate: float = 0.0) -> np.ndarray:
         """One padded 16 kHz chunk -> its waveform at the target rate, with
-        trim_frames 10 ms frames of context dropped from each end."""
+        trim_frames 10 ms frames of context dropped from each end; in the
+        compute dtype of RVC_TPU_BF16, the U-Net trunk in bf16 under
+        RVC_TPU_BF16_F0 (both read now)."""
         with trace_span("host/pad+upload"):
             audio = self._upload(audio0)
         p_len = len(audio0) // self.window
         with trace_span("dispatch/f0_program"):
-            f0 = self.f0(audio, pitch_shift, autotune_strength)
+            f0 = self.f0(audio, pitch_shift, autotune_strength,
+                         torch.bfloat16 if bf16_f0() else torch.float32)
         with trace_span("dispatch/conv_program"):
-            wave = self._convert(audio, f0, sid, p_len, protect, index, index_rate)
+            wave = self._convert(audio, f0, sid, p_len, protect, index, index_rate,
+                                 compute_dtype(self.device))
         spf = self.tgt_sr // 100
         wave = wave[:, trim_frames * spf: wave.shape[1] - trim_frames * spf]
         with trace_span("fetch/materialize"):

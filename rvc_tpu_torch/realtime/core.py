@@ -26,11 +26,18 @@ Two paths, routed as the reference routes them:
   `Pipeline.get_f0` into host pitch buffers rolled the same way, then
   `Pipeline.voice_conversion` on the buffer, trimmed on the host.
 
+The fused block program follows the compute dtype of RVC_TPU_BF16, read
+at each block (`utils.device.compute_dtype`: bf16 by default on a card),
+as the reference's block program: HuBERT on the buffer rounded to bf16,
+the retrieval in float32 rounded back, the upsample and enc_p / flow in
+bf16 on the pipeline's bf16 copies (`Pipeline.models`), the decoder and
+the f0 program float32. The staged path runs float32.
+
 Left out on purpose, as in the rest of the port: the TPU dispatch
 machinery of the JAX block program (packed weight buffers and
 `unpack_tree`, `_dev_scalar`, `jax.jit`) and its float16 audio upload and
 block read-back (`core.py:71, 117, 300`): the port uploads and reads back
-float32 and computes in float32 (K1/K2 with bf16 operands).
+float32.
 """
 
 from __future__ import annotations
@@ -47,7 +54,7 @@ from rvc_tpu_torch.pipelines.offline import coarse_f0_torch, retrieve
 from rvc_tpu_torch.realtime.buffer import circular_write
 from rvc_tpu_torch.realtime.vad import VADProcessor
 from rvc_tpu_torch.utils import audio as audio_utils
-from rvc_tpu_torch.utils.device import to_device
+from rvc_tpu_torch.utils.device import compute_dtype, to_device
 
 SAMPLE_RATE = 16000  # internal conversion rate
 AUDIO_SAMPLE_RATE = 48000  # client/device rate
@@ -134,7 +141,8 @@ def build_block_program(pipe, *, sf, bf, F, skip, ret, spf, win, L, use_index=Fa
         # roll the pitch state left by one block, overwrite the tail
         new_pitchf = torch.cat([pitchf_prev[:, bf: bf + (F - n_tail)], f0], dim=1)
 
-        feats = pipe.hubert(audio, output_hidden_states=True)
+        dtype = compute_dtype(audio.device)
+        feats = pipe.models(dtype)[0](audio.to(dtype), output_hidden_states=True)
         feats_raw = feats
         if use_index:
             feats = retrieve(feats, index, index_rate)

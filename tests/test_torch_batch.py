@@ -1,7 +1,9 @@
 """Batched and long-form conversion: the port's `BatchConverter` against the
 JAX `BatchConverter` on a one-device mesh, with the same small models
 (`torch_port_helpers`) and source noise off on both sides. Bar: the same
-shapes, waveform corr > 0.995 per row; rows do not mix within a batch."""
+shapes, waveform corr > 0.995 per row; rows do not mix within a batch.
+The compute policy is float32 (RVC_TPU_BF16=0) but in the bf16 case of
+`test_convert_batch_matches_jax`, which sets it to 1 on both sides."""
 
 from types import SimpleNamespace
 
@@ -27,10 +29,10 @@ def no_source_noise(monkeypatch):
     monkeypatch.setenv("RVC_TPU_BF16", "0")
 
 
-@pytest.fixture(scope="module")
-def converters():
+def _converters():
     """(JAX BatchConverter, port BatchConverter) over the same weights; the
-    JAX one takes the small RMVPE through its facade before it builds."""
+    JAX one takes the small RMVPE through its facade before it builds (and
+    reads RVC_TPU_BF16 then)."""
     port_s, jax_s, s_params = synthesizers()
     port_h, jax_h, h_params = huberts()
     port_r, jax_r, r_vars = rmvpes()
@@ -44,6 +46,11 @@ def converters():
     port_rvc = SimpleNamespace(pipeline=Pipeline(SR, port_s, port_h, port_r),
                                cfg=cfg, device=torch.device("cpu"))
     return ref, BatchConverter(port_rvc)
+
+
+@pytest.fixture(scope="module")
+def converters():
+    return _converters()
 
 
 def _chirp(seconds, f_start, seed):
@@ -60,15 +67,22 @@ def _assert_rows(got, ref):
         assert corr > 0.995, f"row {i}: waveform corr {corr:.6f}"
 
 
-def test_convert_batch_matches_jax(converters):
-    """B = 3 rows of different pitch; T = 14,000 is padded to 14,080."""
+@pytest.mark.parametrize("policy", ["0", "1"], ids=["float32", "bf16"])
+def test_convert_batch_matches_jax(converters, monkeypatch, policy):
+    """B = 3 rows of different pitch; T = 14,000 is padded to 14,080. Under
+    RVC_TPU_BF16=1 a JAX converter built under it, and the port's bf16
+    copies."""
     ref_bc, port_bc = converters
+    if policy == "1":
+        monkeypatch.setenv("RVC_TPU_BF16", "1")
+        ref_bc, port_bc = _converters()
     batch = np.stack([_chirp(0.875, f, seed=i) for i, f in enumerate((110.0, 180.0, 260.0))])
     kw = dict(sids=np.array([0, 1, 1]), pitch_shift=2.0, protect=0.33)
     ref = np.asarray(ref_bc.convert_batch(batch, **kw))
     got = port_bc.convert_batch(batch, **kw)
     assert got.shape == (3, 14080 * SR // 16000)
     _assert_rows(got, ref)
+    assert (port_bc.rvc.pipeline._bf16 is not None) == (policy == "1")
 
 
 def test_rows_do_not_mix(converters):

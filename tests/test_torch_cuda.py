@@ -5,7 +5,10 @@ tiles cut by the sequence end). Skips where there is no CUDA device:
     python -m pytest tests/test_torch_cuda.py -m cuda -q      # on the card
 
 Tolerances. K3: 1e-4 relative and absolute, a float32 kernel against its
-float32 plain version (TF32 off), so only the summation order differs. K4:
+float32 plain version (TF32 off), so only the summation order differs; on
+bf16 rows (the bf16 compute policy) against its plain version (float32
+arithmetic, the output rounded to bf16): rel_l2 <= 4e-3, the output's bf16
+rounding, and corr > 0.9999. K4:
 1e-3 relative and 2e-3 absolute, the JAX test's bar for its mel kernel.
 K1/K2 compute as the TPU kernel does, with bf16 conv operands and float32
 sums, so each is held twice:
@@ -91,6 +94,60 @@ def test_rel_attention_head_views_match_contiguous(dev, channels_first):
     ref = KA.rel_attention(q.contiguous(), k.contiguous(), v.contiguous(), ek, ev, w, key_lens)
     assert not q.is_contiguous() and got.transpose(1, 2).is_contiguous()
     torch.testing.assert_close(got, ref, atol=0, rtol=0)
+
+
+def _bf16_inputs(dev, B, H, T, D, w, seed):
+    g = _gen(dev, seed)
+    q, k, v = (torch.randn((B, H, T, D), device=dev, generator=g) for _ in range(3))
+    ek, ev = (0.3 * torch.randn((1, 2 * w + 1, D), device=dev, generator=g) for _ in range(2))
+    return tuple(x.bfloat16() for x in (q, k, v, ek, ev))
+
+
+@pytest.mark.parametrize("B,H,T,D,w,lens", [
+    (1, 2, 1632, 96, 10, [1550]),        # the main path's shape
+    (2, 2, 1000, 96, 10, [1000, 677]),
+    (16, 2, 190, 96, 10, [113] * 16),    # a pool step of the realtime block
+    (2, 4, 100, 64, 4, [100, 33])])
+def test_rel_attention_bf16(dev, B, H, T, D, w, lens):
+    """bf16 rows through the kernel's bf16 instantiation: a bf16 output, one
+    launch counted, held against the plain version on valid rows."""
+    q, k, v, ek, ev = _bf16_inputs(dev, B, H, T, D, w, T + D)
+    key_lens = torch.tensor(lens, device=dev, dtype=torch.int32)
+    before = LAUNCHES["rel_attention"]
+    got = KA.rel_attention(q, k, v, ek, ev, w, key_lens)
+    assert LAUNCHES["rel_attention"] == before + 1 and got.dtype == torch.bfloat16
+    ref = KA.rel_attention_reference(q, k, v, ek, ev, w, key_lens)
+    assert ref.dtype == torch.bfloat16
+    valid = (torch.arange(T, device=dev)[None, :] < key_lens[:, None])[:, None, :, None]
+    got, ref = (got.float() * valid).flatten(), (ref.float() * valid).flatten()
+    corr = float(torch.corrcoef(torch.stack([got, ref]).double())[0, 1])
+    assert _rel_l2(got, ref) <= 4e-3 and corr > 0.9999, (_rel_l2(got, ref), corr)
+
+
+def test_rel_attention_bf16_has_no_backward(dev):
+    """Training runs float32: a gradient through a bf16 call raises."""
+    q, k, v, ek, ev = _bf16_inputs(dev, 1, 2, 64, 96, 10, 3)
+    lens = torch.tensor([64], device=dev, dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="no backward"):
+        KA.rel_attention(q.requires_grad_(), k, v, ek, ev, 10, lens)
+    with torch.no_grad():
+        assert KA.rel_attention(q, k, v, ek, ev, 10, lens).dtype == torch.bfloat16
+
+
+def test_rel_attention_float32_entry_unchanged(dev):
+    """The float32 entry after a bf16 call on the same rows: bit-equal to a
+    float32 call before it, and a float32 output."""
+    B, H, T, D, w = 2, 2, 500, 96, 10
+    g = _gen(dev, 11)
+    q, k, v = (torch.randn((B, H, T, D), device=dev, generator=g) for _ in range(3))
+    ek, ev = (0.3 * torch.randn((1, 2 * w + 1, D), device=dev, generator=g) for _ in range(2))
+    lens = torch.tensor([500, 321], device=dev, dtype=torch.int32)
+    with torch.no_grad():
+        before = KA.rel_attention(q, k, v, ek, ev, w, lens)
+        KA.rel_attention(*(x.bfloat16() for x in (q, k, v, ek, ev)), w, lens)
+        after = KA.rel_attention(q, k, v, ek, ev, w, lens)
+    assert after.dtype == torch.float32
+    torch.testing.assert_close(after, before, atol=0, rtol=0)
 
 
 def _rel_l2(a, b) -> float:
@@ -263,15 +320,18 @@ def test_vocoder_matches_the_host(dev, vocoder):
     assert corr > 0.9999 and float((got - ref).abs().max()) < 1e-3, corr
 
 
-def test_convert_batch_matches_the_host(dev):
+def test_convert_batch_matches_the_host(dev, monkeypatch):
     """BatchConverter at B = 3 on the card (K1-K4) against the host's plain
-    versions, same seeded weights, source noise off: corr > 0.999 per row."""
+    versions, same seeded weights, source noise off, both float32
+    (RVC_TPU_BF16=0; bf16 against float32: `chip_smoke.py`'s bf16 phase):
+    corr > 0.999 per row."""
     import numpy as np
 
     from rvc_tpu_torch.api import RVC
     from rvc_tpu_torch.configs import get_config
     from rvc_tpu_torch.parallel import BatchConverter
 
+    monkeypatch.setenv("RVC_TPU_BF16", "0")
     cfg = get_config(32000, model_n_layers=1)
     batch = np.stack([_tone(1.0) * a for a in (1.0, 0.5, 0.8)])
     batch[1] = np.roll(batch[1], 4000)
@@ -320,16 +380,18 @@ def _realtime_clip(n_blocks: int, block: int, seed: int = 0):
     return (0.4 * np.sin(phase) + 0.01 * rng.standard_normal(len(t))).astype(np.float32)
 
 
-def test_fused_realtime_block_matches_the_host(dev):
+def test_fused_realtime_block_matches_the_host(dev, monkeypatch):
     """The fused block path at the default session on the card (K1-K4 in
     one block program) against the port's CPU path, same seeded weights,
-    noise off, 3 voiced blocks: waveform corr > 0.99 per block."""
+    noise off, both float32 (RVC_TPU_BF16=0), 3 voiced blocks: waveform
+    corr > 0.99 per block."""
     import numpy as np
 
     from rvc_tpu_torch.api import RVC
     from rvc_tpu_torch.configs import get_config
     from rvc_tpu_torch.realtime.core import VoiceChanger
 
+    monkeypatch.setenv("RVC_TPU_BF16", "0")
     cfg = get_config(32000, model_n_layers=1)
     vcs = [VoiceChanger(RVC(config=cfg, device=d, source_noise=False), silent_threshold=-90)
            for d in (dev, "cpu")]
@@ -345,9 +407,10 @@ def test_fused_realtime_block_matches_the_host(dev):
                for k in ("resblock_group", "resblock_chain", "rel_attention", "log_mel"))
 
 
-def test_pool_matches_single_streams_on_the_card(dev):
+def test_pool_matches_single_streams_on_the_card(dev, monkeypatch):
     """VoiceChangerPool at N = 4 (one batched block program) against four
-    single VoiceChangers on the card, noise off: atol 5e-3 per stream."""
+    single VoiceChangers on the card, noise off, float32 (RVC_TPU_BF16=0):
+    atol 5e-3 per stream."""
     import numpy as np
 
     from rvc_tpu_torch.api import RVC
@@ -355,6 +418,7 @@ def test_pool_matches_single_streams_on_the_card(dev):
     from rvc_tpu_torch.realtime.core import VoiceChanger
     from rvc_tpu_torch.realtime.pool import VoiceChangerPool
 
+    monkeypatch.setenv("RVC_TPU_BF16", "0")
     rvc = RVC(config=get_config(32000, model_n_layers=1), device=dev, source_noise=False)
     pool = VoiceChangerPool(rvc, 4, silent_threshold=-90)
     singles = [VoiceChanger(rvc, silent_threshold=-90) for _ in range(4)]

@@ -16,7 +16,8 @@ block program uploads its audio and returns its block in float16
   lossless): the same shape, waveform corr > 0.995, atol 5e-3 (the JAX
   tests' bar for its fused block against its staged one), the new pitch
   state within 1e-3 Hz on frames voiced on both sides and voiced on the
-  same frames;
+  same frames; float32 (RVC_TPU_BF16=0, the CPU's default), and in its
+  bf16 case under RVC_TPU_BF16=1 on both sides;
 - `Realtime` and `VoiceChanger` blocks: the same length, corr > 0.995,
   atol 5e-3. The fused pitch state within 5e-3 Hz: there the JAX upload
   rounds the buffer to float16 (relative 2^-11), which moves the decoded
@@ -208,11 +209,17 @@ def test_autotune_strength_zero_is_identity():
 # the block program
 
 
-@pytest.mark.parametrize("use_index", [False, True], ids=["plain", "index"])
-def test_block_program_matches_jax(pair, index_pair, use_index):
+@pytest.mark.parametrize("case", ["plain", "index", "bf16"])
+def test_block_program_matches_jax(pair, index_pair, monkeypatch, case):
     """The same float16-exact buffer and pitch state through both block
-    programs, with sid 1, protect 0.33, +2 semitones (and index_rate 0.7)."""
+    programs, with sid 1, protect 0.33, +2 semitones (and index_rate 0.7).
+    bf16: a pair made under RVC_TPU_BF16=1 (the JAX pipeline packs and
+    traces under it; the port reads it at each block)."""
+    use_index = case == "index"
     p = index_pair if use_index else pair
+    if case == "bf16":
+        monkeypatch.setenv("RVC_TPU_BF16", "1")
+        p = make_pair()
     proto = p.proto
     jfn = proto._get_block_program(use_index)
     geom = dict(sf=proto.silence_front_frames, bf=proto.block_16k // 160,
@@ -243,6 +250,7 @@ def test_block_program_matches_jax(pair, index_pair, use_index):
     np.testing.assert_array_equal(new_state[0, :geom["sf"]].numpy(),
                                   state[0, geom["bf"]: geom["bf"] + geom["sf"]])
     _assert_pitch(new_state.numpy(), np.asarray(ref_state), 1e-3, "pitch state")
+    assert (p.port.pipeline._bf16 is not None) == (case == "bf16")
 
 
 # ----------------------------------------------------------------------------
