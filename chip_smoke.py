@@ -6,6 +6,10 @@
 Phases, one JSON line each (a `kernel` line per kernel call):
   device    the card's name and power limit (nvidia-smi)
   build     nvcc builds every kernel of `rvc_tpu_torch/csrc/` (seconds)
+  wgmma     static evidence that K1/K2 run on wgmma: HGMMA instructions per
+            kernel function of the built resblock library (cuobjdump -sass;
+            where it is missing, wgmma.mma_async in its PTX); fails if K2's
+            kernel has none
   pipeline  the full-width 48 kHz model (random weights from seed 0)
             converts a 13.5 s clip through `RVC.infer`; wall ms after a warm
             call, the realtime factor, and each kernel's launches in that
@@ -32,8 +36,13 @@ Phases, one JSON line each (a `kernel` line per kernel call):
             run in float32 by cuDNN (`emu_rel_l2`, `cudnn_emu_rel_l2`), and
             carry `cudnn_bf16_ms`: the plain chain on
             bf16 copies of the inputs (cuDNN bf16 convs, bf16 residual), a
-            yardstick, not the same function. K3 and K4 carry their launch
-            `grid` (blocks, blocks an SM, waves on the card's SMs); K3 also
+            yardstick, not the same function, and `per_step_ms` /
+            `per_step_device_ms`: the same call by the per-step kernel (one
+            launch per dilation step, as K1/K2 ran before the one-pass
+            design), a yardstick on no path. Every line carries its launch
+            `grid` (K1/K2: `launch_plan`'s mode, blocks, tile, halo, shared
+            bytes, stages, launches; K3 / K4: blocks, blocks an SM, waves on
+            the card's SMs); K3 also
             `sdpa_ms`: PyTorch's scaled_dot_product_attention in float32 on
             the same q, k, v with the band logits and the length folded into
             a dense additive mask built outside the timed region, a
@@ -99,7 +108,7 @@ Phases, one JSON line each (a `kernel` line per kernel call):
   longform  `BatchConverter.convert_long_batch` on the main path's model:
             64 x 60 s utterances in 10 s windows with 1 s of context, 8 a
             dispatch (first call, wall, audio-seconds per second, peak
-            memory, launches per dispatch: K1 27, K2 9, K3 6, K4 1); the
+            memory, launches per dispatch: K1 3, K2 9, K3 6, K4 1); the
             first 16 at 1, 8 and 16 a dispatch; then (`longform_b8`) one
             B = 8 dispatch's stages and every kernel call held against its
             plain version (K3 / K4 with their grid), and one window at B = 8
@@ -110,7 +119,7 @@ Phases, one JSON line each (a `kernel` line per kernel call):
             reference's default of 0 dB gates any block under RMS 1): 40
             blocks of the chirp after 3 warm ones, `on_request` ms
             (median, p95, max) against the 512 ms budget, launches per block
-            (K1 27, K2 9, K3 6, K4 1), ms of the block program and its stages
+            (K1 3, K2 9, K3 6, K4 1), ms of the block program and its stages
             (CUDA events around one call) with each stage's trace (kernels,
             busy ms) and host ms of the host's parts, torch.profiler over one
             block (CUDA kernels, copies, busy ms, the top kernels), and every kernel
@@ -139,7 +148,7 @@ Phases, one JSON line each (a `kernel` line per kernel call):
             p95, steps/s, segment audio-s/s, peak memory), one step split by
             CUDA events (G forward, G backward, G optimizer, D forward +
             backward, D optimizer), torch.profiler over one step, launches
-            per step (K1 27, K2 9, K3 6; K1/K2 twice with checkpointing)
+            per step (K1 3, K2 9, K3 6; K1/K2 twice with checkpointing)
   train_checks  30 warmup-mode steps on that batch with fixed segment starts
             (the mel loss falls: the mean of the last 5 under the first 5);
             every K1-K3 call of one step held forward at the bars above and
@@ -166,7 +175,7 @@ Phases, one JSON line each (a `kernel` line per kernel call):
             a step with ms of one each, ZeRO-1 optimizer bytes per rank
             against the single card, step-1 losses (rel 1e-4), parameters
             after the steps (rel_l2 1e-3), the ranks bit-identical, launches
-            per rank (K1 27, K2 9, K3 6 a step)
+            per rank (K1 3, K2 9, K3 6 a step)
   ddp_nccl  `train` through its own bootstrap on the train phase's dataset,
             one epoch: rank 0 of 1 joined by NCCL at a localhost coordinator
             (wall, steps/s, launches); one rank a card started by `train`
@@ -177,7 +186,7 @@ Phases, one JSON line each (a `kernel` line per kernel call):
             draws: step-1 losses and the gathered G / D after the steps
             against ddp_gloo's single-card run at its bars, each rank's param
             and optimizer bytes against the rules (`rule_bytes`) and the
-            single card, launches per rank (K1 21 + K1_tp 6, K2_tp 9, K3 6 a
+            single card, launches per rank (K1 3 + K1_tp 6, K2_tp 9, K3 6 a
             step), the model axis's all-reduces and all-gathers a step (count,
             bytes), step ms; then every `resblock_chain_tp` /
             `resblock_group_tp` call of one more step, replayed on both ranks
@@ -262,12 +271,12 @@ BF16_BAR = dict(atol=2e-2, rtol=1e-2, min_corr=0.9999, emu_rel_l2=1e-4)
 # keyed by wrapper name, which is also its launch counter's
 KERNELS = {
     "resblock_group": dict(
-        name="K1 resblock_group", module="resblock", entry="rvc_resblock_step",
+        name="K1 resblock_group", module="resblock", entry="rvc_resblock_chains",
         source="rvc_tpu_torch/csrc/resblock.cu",
         replaces="rvc_tpu/ops/pallas/resblock.py:287 fused_resblock_group",
         peak=PEAK_BF16, **BF16_BAR),
     "resblock_chain": dict(
-        name="K2 resblock_chain", module="resblock", entry="rvc_resblock_step",
+        name="K2 resblock_chain", module="resblock", entry="rvc_resblock_chains",
         source="rvc_tpu_torch/csrc/resblock.cu",
         replaces="rvc_tpu/ops/pallas/resblock.py:141 fused_resblock",
         peak=PEAK_BF16, **BF16_BAR),
@@ -544,9 +553,20 @@ def sdpa_mask(a: dict):
 
 
 def kernel_grid(name: str, a: dict) -> dict:
-    """The launch grid of K3's split kernel or K4's DFT kernel for this call."""
+    """The launch grid of this call: K1/K2's plan (mode, blocks, tile, halo,
+    window, shared bytes, stages, launches), K3's split kernel's, K4's DFT
+    kernel's."""
     import torch
 
+    if name in ("resblock_group", "resblock_chain"):
+        from rvc_tpu_torch.ops.kernels.resblock import launch_plan
+
+        B, T, C = a["x"].shape
+        if name == "resblock_group":
+            ks, ds = a["kernel_sizes"], a["dilations"]
+        else:
+            ks, ds = (a["kernel_size"],), (a["dilations"],)
+        return launch_plan(C, T, ks, ds, B)
     if name == "rel_attention":
         from rvc_tpu_torch.ops.kernels.attention import launch_plan
 
@@ -679,8 +699,12 @@ def phase_kernels(calls: list, launches: dict, only=tuple(KERNELS)) -> list:
                 bf_args, bf_kwargs = cast(args, torch.bfloat16), cast(kwargs, torch.bfloat16)
                 extra["cudnn_bf16_ms"] = cuda_ms(lambda: plain(*bf_args, **bf_kwargs))
                 del bf_args, bf_kwargs
-            else:
-                extra["grid"] = kernel_grid(name, a)
+                # the same call by the per-step kernel, as K1/K2 ran before the
+                # one-pass design: a yardstick in the same run, on no path
+                per_step = per_step_fn(name)
+                extra["per_step_ms"] = cuda_ms(lambda: per_step(*args, **kwargs))
+                extra["per_step_device_ms"] = device_kernel_ms(lambda: per_step(*args, **kwargs))
+            extra["grid"] = kernel_grid(name, a)
             extra["device_ms"] = device_kernel_ms(lambda: fn(*args, **kwargs))
             if name == "rel_attention":
                 mask = sdpa_mask(a)
@@ -707,7 +731,14 @@ def phase_kernels(calls: list, launches: dict, only=tuple(KERNELS)) -> list:
             r["plain_ms"] += plain_ms
             r["ms_queued"] += extra["ms_queued"]
             r["plain_ms_queued"] += extra["plain_ms_queued"]
-            if "grid" in extra:
+            if name in ("resblock_group", "resblock_chain"):
+                r.setdefault("grids", []).append({k: extra["grid"][k] for k in (
+                    "mode", "C", "T", "blocks", "tile", "halo", "smem_bytes", "stages",
+                    "launches")})
+                for k in ("per_step_ms", "per_step_device_ms"):
+                    r[k] = r.get(k, 0.0) + (sum(extra[k].values()) if isinstance(extra[k], dict)
+                                            else extra[k])
+            elif "grid" in extra:
                 r["grid"] = extra["grid"]
             if name == "rel_attention":
                 r["rows"] = str(a["q"].dtype).replace("torch.", "")
@@ -741,10 +772,50 @@ def phase_kernels(calls: list, launches: dict, only=tuple(KERNELS)) -> list:
             bound_ms=bound_ms, bound_by=bound_by, bound=bound_text(spec["peak"]),
             library_ms=None, cudnn_bf16_ms=r.get("cudnn_bf16_ms"), sdpa_ms=r.get("sdpa_ms"),
             sdpa_ms_queued=r.get("sdpa_ms_queued"),
-            grid=r.get("grid"),
+            grid=r.get("grid", r.get("grids")), per_step_ms=r.get("per_step_ms"),
+            per_step_device_ms=r.get("per_step_device_ms"),
             emu_rel_l2=r.get("emu_rel_l2"), emu_update_rel_l2=r.get("emu_update_rel_l2"),
             cudnn_emu_rel_l2=r.get("cudnn_emu_rel_l2")))
     return summary
+
+
+def per_step_fn(name: str):
+    """K1's / K2's function by the per-step kernel (the yardstick)."""
+    from rvc_tpu_torch.ops.kernels import resblock as KR
+
+    return KR.resblock_group_per_step if name == "resblock_group" else KR.resblock_chain_per_step
+
+
+def wgmma_count() -> dict:
+    """Static evidence that K1/K2 issue wgmma: HGMMA instructions per kernel
+    function of the built resblock library (`cuobjdump -sass`), or where
+    cuobjdump is missing, wgmma.mma_async per entry of its PTX (`nvcc -ptx`)."""
+    from rvc_tpu_torch.ops.kernels import build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if os.path.exists(tool):
+        text = subprocess.run([tool, "-sass", str(build._target("resblock"))],
+                              capture_output=True, text=True, timeout=300, check=True).stdout
+        marker, inst, source = "Function : ", "HGMMA", "cuobjdump -sass: HGMMA"
+    else:
+        ptx = str(build.BUILD_DIR / "resblock.ptx")
+        subprocess.run([build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+                        "-ptx", "-o", ptx, str(build.CSRC_DIR / "resblock.cu")],
+                       check=True, timeout=600)
+        with open(ptx) as f:
+            text = f.read()
+        marker, inst, source = ".entry ", "wgmma.mma_async", "nvcc -ptx: wgmma.mma_async"
+    counts, name = {}, None
+    for line in text.splitlines():
+        if marker in line:
+            m = re.search(r"chains_kernelILi(\d+)ELb([01])E", line) or re.search(
+                r"resblock_step_kernelILi(\d+)ELi(\d+)E", line)
+            name = None if m is None else (
+                f"chains_kernel<{m.group(1)},{'true' if m.group(2) == '1' else 'false'}>"
+                if "chains" in m.group(0) else f"resblock_step_kernel<{m.group(1)},{m.group(2)}>")
+        elif name is not None and inst in line:
+            counts[name] = counts.get(name, 0) + 1
+    return {"source": source, "counts": counts}
 
 
 def stage_ms(rvc, dtype) -> tuple:
@@ -1777,7 +1848,7 @@ def phase_vocoders(work: str) -> dict:
 LONG_UTTS, LONG_S = 64, 60.0          # scripts/bench_longform.py's shape
 CHUNK_S, PAD_S, LONG_BATCH = 10.0, 1.0, 8
 AB_UTTS, AB_BATCHES = 16, (1, 8, 16)
-LONG_LAUNCHES = {"resblock_group": 27, "resblock_chain": 9, "rel_attention": 6, "log_mel": 1,
+LONG_LAUNCHES = {"resblock_group": 3, "resblock_chain": 9, "rel_attention": 6, "log_mel": 1,
                  "resblock_group_tp": 0, "resblock_chain_tp": 0,
                  "resblock_group_packed": 0}
 
@@ -1924,7 +1995,7 @@ RT_BUDGET_MS = 512.0                  # one block of 192 x 128 samples at 48 kHz
 RT_GATE_DB = -90                      # the reference's default of 0 dB gates RMS < 1
 POOL_NS, POOL_STEPS = (1, 4, 16), 8
 TCP_BLOCKS = 10
-RT_LAUNCHES = {"resblock_group": 27, "resblock_chain": 9, "rel_attention": 6, "log_mel": 1,
+RT_LAUNCHES = {"resblock_group": 3, "resblock_chain": 9, "rel_attention": 6, "log_mel": 1,
                "resblock_group_tp": 0, "resblock_chain_tp": 0,
                "resblock_group_packed": 0}
 
@@ -2286,7 +2357,7 @@ TRAIN_WARM, TRAIN_TIMED = 3, 20
 TRAIN_DESCENT_STEPS = 30                                  # warmup mode, one fixed batch
 TRAIN_VOCODER_STEPS = 2
 TRAIN_PARITY_B = 2
-TRAIN_LAUNCHES = {"resblock_group": 27, "resblock_chain": 9, "rel_attention": 6, "log_mel": 0,
+TRAIN_LAUNCHES = {"resblock_group": 3, "resblock_chain": 9, "rel_attention": 6, "log_mel": 0,
                   "resblock_group_tp": 0, "resblock_chain_tp": 0,
                   "resblock_group_packed": 0}
 TRAIN_GRAD_BAR = 1e-5          # each Function's gradients against the plain autograd's
@@ -2839,7 +2910,7 @@ def phase_ddp_gloo(work: str) -> dict:
 TP_RANKS, TP_STEPS = 2, 3          # mesh (1, 2): one model group, both ranks on the card
 # a rank's launches a step at full width, n_model 2: the C = 256 stage's chains
 # and the C = 128 stage's k = 7 / 11 on the partial-sum launch, K1 elsewhere
-TP_LAUNCHES = {"resblock_group": 21, "resblock_chain": 0, "rel_attention": 6, "log_mel": 0,
+TP_LAUNCHES = {"resblock_group": 3, "resblock_chain": 0, "rel_attention": 6, "log_mel": 0,
                "resblock_group_tp": 6, "resblock_chain_tp": 9,
                "resblock_group_packed": 0}
 TP_KERNELS = {
@@ -3245,12 +3316,12 @@ def phase_tools(work: str) -> None:
 TTS_TEXT = "The quick brown fox jumps over the lazy dog."
 TTS_VOICE = "en-US-AriaNeural"
 # the kernel symbols a traced main-path conversion must show (demangled, spaces dropped)
-TRACE_SYMBOLS = {"K1": ("resblock_step_kernel<128,128>", "resblock_step_kernel<64,64>",
-                        "resblock_step_kernel<32,32>"),
-                 "K2": ("resblock_step_kernel<256,256>",),
+TRACE_SYMBOLS = {"K1": ("wg::chains_kernel<128,true>", "wg::chains_kernel<64,true>",
+                        "wg::chains_kernel<32,true>"),
+                 "K2": ("wg::chains_kernel<256,false>",),
                  "K3": ("rel_attn_split_kernel",),
                  "K4": ("dft_mag_kernel", "mel_log_kernel")}
-PACKED = dict(name="K1 resblock_group_packed", module="resblock", entry="rvc_resblock_step",
+PACKED = dict(name="K1 resblock_group_packed", module="resblock", entry="rvc_resblock_chains",
               source="rvc_tpu_torch/csrc/resblock.cu",
               replaces="rvc_tpu/ops/pallas/resblock.py:451 resblock_group_packed",
               peak=PEAK_BF16, **BF16_BAR)
@@ -3515,7 +3586,7 @@ def frontends_packed(k1_calls: list, card: str) -> dict:
 
     calls = [packed_args(c) for c in k1_calls]
     _, launches = counted(lambda: [resblock_group_packed(*a) for a in calls])
-    if launches["resblock_group_packed"] != 9 * len(calls) or launches["resblock_group"]:
+    if launches["resblock_group_packed"] != len(calls) or launches["resblock_group"]:
         raise AssertionError(f"packed: {len(calls)} calls launched {launches}")
     fn, plain, spec = resblock_group_packed, resblock_group_packed_reference, PACKED
     lines, total = [], dict(flop=0, bytes=0, ms=0.0, ms_queued=0.0, plain_ms=0.0,
@@ -3607,6 +3678,10 @@ def main() -> int:
           "nvidia_smi": card, "torch": torch.__version__, "cuda": torch.version.cuda})
 
     emit({"phase": "build", "seconds": build.build_all(verbose=True)})
+    wgmma = wgmma_count()
+    emit({"phase": "wgmma", **wgmma})
+    if not wgmma["counts"].get("chains_kernel<256,false>"):
+        raise AssertionError(f"K2's kernel issues no wgmma: {wgmma}")
 
     t0 = time.perf_counter()
     rvc = RVC(config=get_config(48000), seed=SEED, device="cuda")
@@ -3688,6 +3763,9 @@ def main() -> int:
         phase_tools(work)
         frontend_launches, packed_summary = phase_frontends(work, index_path)
     for entry, name in zip(summary, KERNELS):
+        if name in ("resblock_group", "resblock_chain"):
+            entry["wgmma"] = {"source": wgmma["source"], "counts": {
+                k: v for k, v in wgmma["counts"].items() if k.startswith("chains_kernel")}}
         entry["launches_by_path"] = {"pipeline": launches[name],
                                      "retrieval": retrieval_launches[name],
                                      "f0less": f0less_launches[name],

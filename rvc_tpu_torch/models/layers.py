@@ -25,7 +25,7 @@ from torch import nn
 
 from rvc_tpu_torch.ops import conv as conv_ops
 from rvc_tpu_torch.ops.commons import fused_add_tanh_sigmoid_multiply
-from rvc_tpu_torch.ops.kernels.resblock import resblock_chain, resblock_chain_tp
+from rvc_tpu_torch.ops.kernels.resblock import drop_cached, resblock_chain, resblock_chain_tp
 from rvc_tpu_torch.parallel.tp import local_slice
 
 LRELU_SLOPE = 0.1
@@ -179,10 +179,26 @@ class ResBlock(nn.Module):
         return (tuple(f"convs1.{i}.weight" for i in range(len(self.convs1))),
                 tuple(f"convs2.{i}.weight" for i in range(len(self.convs2))))
 
+    _stacked = None     # (the parameters' identities and versions, the stacked tuple)
+
     def stacked_weights(self) -> tuple:
         """(w1, b1, w2, b2) in the kernel's layout: w (S, K, C, C), b (S, C);
         under tensor parallelism the rank's w1 (S, K, C, C_M), b1 (S, C_M),
-        w2 (S, K, C_M, C) and the whole b2."""
+        w2 (S, K, C_M, C) and the whole b2. Without autograd (inference) the
+        same tensors come back until a parameter changes (its identity or
+        its in-place `_version`), so the kernel's weight conversion, cached
+        on them, runs once per weight version."""
+        params = [c.weight for c in self.convs1] + [c.bias for c in self.convs1] \
+            + [c.weight for c in self.convs2] + [c.bias for c in self.convs2]
+        if torch.is_grad_enabled() or self.tp is not None or any(p.is_inference() for p in params):
+            return self._stack()
+        key = tuple((id(p), p._version) for p in params)
+        if self._stacked is None or self._stacked[0] != key:
+            with torch.inference_mode(False), torch.no_grad():
+                self._stacked = (key, self._stack())
+        return self._stacked[1]
+
+    def _stack(self) -> tuple:
         out = []
         for convs in (self.convs1, self.convs2):
             out.append(torch.stack([c.weight.permute(2, 1, 0) for c in convs]))
@@ -190,6 +206,12 @@ class ResBlock(nn.Module):
         if self.tp is not None:
             out[1] = local_slice(out[1], 1, self.tp)
         return tuple(out)
+
+    def drop_cache(self) -> None:
+        """Forget the stacked weights and the kernel's conversions of them."""
+        if self._stacked is not None:
+            drop_cached(self._stacked[1])
+            self._stacked = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.tp is not None:

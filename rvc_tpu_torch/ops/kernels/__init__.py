@@ -19,7 +19,9 @@ adds one under a lock (`BatchConverter`'s mesh launches from one host
 thread per device). `record_calls`
 keeps a copy of every wrapper call made inside it, so the calls a run
 made can be replayed and timed one by one (detached copies: a recording
-holds no autograd graph).
+holds no autograd graph). K1/K2's weight conversions are cached per
+weight version (`resblock.cached`), so a replay, as a conversion, converts
+once.
 
 In training K1-K3 run under `torch.autograd.Function`s (`ChainFunction`,
 `GroupFunction`, `RelAttentionFunction`; K1's packed entry
@@ -67,11 +69,14 @@ def _copy(obj):
 
 
 def recorded(fn):
-    """Mark a kernel wrapper: inside `record_calls` each call is kept."""
+    """Mark a kernel wrapper: inside `record_calls` each call is kept (as
+    normal tensors, also inside inference mode, so that a replay finds the
+    weight conversions cached as the recorded run did)."""
     @functools.wraps(fn)
     def wrapper(*args, **kwargs):
         if _recording is not None:
-            _recording.append((fn, _copy(args), {k: _copy(v) for k, v in kwargs.items()}))
+            with torch.inference_mode(False):
+                _recording.append((fn, _copy(args), {k: _copy(v) for k, v in kwargs.items()}))
         return fn(*args, **kwargs)
     return wrapper
 

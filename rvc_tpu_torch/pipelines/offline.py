@@ -51,6 +51,7 @@ import torch
 from torch.nn import functional as F
 
 from rvc_tpu_torch.configs import PipelineConfig
+from rvc_tpu_torch.models.layers import ResBlock
 from rvc_tpu_torch.models.rmvpe import RMVPE, decode_salience
 from rvc_tpu_torch.models.synthesizer import SOURCE_NOISE_SEED, bf16_copy, source_noise_on
 from rvc_tpu_torch.pitch import PitchExtractor, autotune_f0
@@ -175,6 +176,18 @@ class Pipeline:
                     hubert = copy.deepcopy(self.hubert).requires_grad_(False)
                     self._bf16 = (hubert.to(torch.bfloat16), bf16_copy(self.synthesizer))
             return self._bf16
+
+    def refresh(self) -> None:
+        """Drop what the pipeline made from its weights (call after changing
+        them; the reference's `refresh` drops its compiled programs): the
+        bf16 copies of `models`, and the ResBlocks' stacked weights and
+        their kernel conversions, of the copies and of the float32 model."""
+        with self._bf16_lock:
+            for model in (self.synthesizer, *(self._bf16 or ())):
+                for module in model.modules():
+                    if isinstance(module, ResBlock):
+                        module.drop_cache()
+            self._bf16 = None
 
     # ------------------------------------------------------------------
     def f0(self, audio: torch.Tensor, pitch_shift: float, autotune_strength: float,

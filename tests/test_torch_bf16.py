@@ -294,3 +294,34 @@ def test_staged_path_unchanged_under_bf16(monkeypatch):
         out[v] = pipe.pipeline(clip, sid=1, f0_method="pm")
     np.testing.assert_array_equal(out["1"], out["0"])
     assert pipe._bf16 is None
+
+
+@torch.no_grad()
+def test_refresh_drops_copies_made_from_old_weights(monkeypatch):
+    """Under RVC_TPU_BF16=1 the pipeline converts on bf16 copies made at its
+    first bf16 conversion; after the float32 synthesizer's weights change in
+    place it keeps converting with the old ones (bit-equal to the first
+    output) until `refresh`, after which it equals a fresh pipeline on the
+    new weights. The float32 path follows the change without it (the
+    ResBlocks' kept weights are keyed on the parameters' versions)."""
+    monkeypatch.setenv("RVC_TPU_BF16", "1")
+    port_s, port_h, port_r = synthesizers(ups_gain=UPS_GAIN)[0], huberts()[0], rmvpes()[0]
+    pipe = Pipeline(SR, port_s, port_h, port_r)
+    clip = _clip()
+    first = pipe.pipeline(clip, sid=1)
+    monkeypatch.setenv("RVC_TPU_BF16", "0")
+    f32_first = pipe.pipeline(clip, sid=1)
+    for p in list(port_s.dec.resblocks.parameters()) + list(port_s.enc_p.parameters()):
+        p.mul_(1.25)
+    f32_after = pipe.pipeline(clip, sid=1)
+    assert not np.array_equal(f32_after, f32_first)
+    np.testing.assert_array_equal(f32_after, Pipeline(SR, port_s, port_h, port_r)
+                                  .pipeline(clip, sid=1))
+    monkeypatch.setenv("RVC_TPU_BF16", "1")
+    np.testing.assert_array_equal(pipe.pipeline(clip, sid=1), first)
+    pipe.refresh()
+    assert pipe._bf16 is None
+    fresh = Pipeline(SR, port_s, port_h, port_r).pipeline(clip, sid=1)
+    got = pipe.pipeline(clip, sid=1)
+    assert not np.array_equal(got, first)
+    np.testing.assert_array_equal(got, fresh)

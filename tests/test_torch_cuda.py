@@ -201,6 +201,47 @@ def test_resblock_group(dev, C, T):
     _assert_bf16_kernel(got, KR.resblock_group_reference, x, weights, (3, 7, 11), dil)
 
 
+# T at the tiles' edges: one step, below the largest halo (60), past it, one
+# row short of the launch plan's tile and one row past it
+EDGES = ("1", "59", "61", "tile-1", "tile+1")
+
+
+@pytest.mark.parametrize("C", KR.CHANNELS)
+@pytest.mark.parametrize("edge", EDGES)
+def test_resblock_tile_edges(dev, C, edge):
+    """B = 2 at T on the tiles' edges: K1 (one launch) at C <= 128, K2 at
+    C = 256 (k = 11: one launch per dilation step), at the bars above."""
+    ks, dil = ((3, 7, 11), ((1, 3, 5),) * 3) if C <= 128 else ((11,), ((1, 3, 5),))
+    tile = KR.launch_plan(C, 1000, ks, dil)["tile"]
+    T = {"1": 1, "59": 59, "61": 61, "tile-1": tile - 1, "tile+1": tile + 1}[edge]
+    g = _gen(dev, C + T)
+    x = torch.randn((2, T, C), device=dev, generator=g)
+    weights = sum((_weights(dev, g, C, K) for K in ks), ())
+    before = dict(LAUNCHES)
+    if C <= 128:
+        got = KR.resblock_group(x, weights, ks, dil)
+        assert LAUNCHES["resblock_group"] == before["resblock_group"] + 1
+        _assert_bf16_kernel(got, KR.resblock_group_reference, x, weights, ks, dil)
+    else:
+        got = KR.resblock_chain(x, *weights, 11, (1, 3, 5))
+        assert LAUNCHES["resblock_chain"] == before["resblock_chain"] + 3
+        _assert_bf16_kernel(got, KR.resblock_chain_reference, x, *weights, 11, (1, 3, 5))
+
+
+@pytest.mark.parametrize("C", [32, 128, 256])
+def test_resblock_per_step_yardstick(dev, C):
+    """The per-step kernel's K1 (`resblock_group_per_step`, the yardstick
+    chip_smoke.py times) at the same bars, counting no launches."""
+    g = _gen(dev, 3 * C)
+    x = torch.randn((2, 500, C), device=dev, generator=g)
+    weights = sum((_weights(dev, g, C, K) for K in (3, 7, 11)), ())
+    dil = ((1, 3, 5),) * 3
+    before = dict(LAUNCHES)
+    got = KR.resblock_group_per_step(x, weights, (3, 7, 11), dil)
+    assert dict(LAUNCHES) == before
+    _assert_bf16_kernel(got, KR.resblock_group_reference, x, weights, (3, 7, 11), dil)
+
+
 @pytest.mark.parametrize("nprobe", [1, 4])
 def test_ivf_search_and_blend(dev, nprobe):
     """Retrieval on the card (cuBLAS float32 product, torch.topk) against
@@ -513,7 +554,7 @@ def test_resblock_group_tp(dev, one_rank, index):
     ks, dil, model = (3, 7, 11), ((1, 3, 5),) * 3, Axis(2, index)
     before = dict(LAUNCHES)
     got = KR.resblock_group_tp(x, weights, ks, dil, 0.1, model)
-    assert LAUNCHES["resblock_group"] == before["resblock_group"] + 3
+    assert LAUNCHES["resblock_group"] == before["resblock_group"] + 1
     assert LAUNCHES["resblock_group_tp"] == before["resblock_group_tp"] + 6
     _assert_bf16_kernel(got, _rank_group, x, weights, ks, dil, 0.1, model)
     if index == 0:
@@ -573,7 +614,7 @@ def test_resblock_group_gradients(dev, C):
     before = LAUNCHES["resblock_group"]
     got, ref, out = _grads_both_ways(KR.resblock_group, KR.resblock_group_reference,
                                      (x, *weights), lambda w: (tuple(w),), ks, dil)
-    assert LAUNCHES["resblock_group"] == before + 9
+    assert LAUNCHES["resblock_group"] == before + 1
     assert len(got) == 13
     for i, (a, b) in enumerate(zip(got, ref)):
         assert _rel_l2(a, b) < 1e-5, f"input {i}: rel_l2 {_rel_l2(a, b):.3g}"
@@ -584,7 +625,7 @@ def test_resblock_group_gradients(dev, C):
 def test_resblock_group_packed(dev, C, T):
     """K1 on the packed lane layout (B = 2; T not a multiple of P where P >
     1): the first T steps at K1's bars against the plain stage on them,
-    zeros past T, 9 launches counted as `resblock_group_packed` and none as
+    zeros past T, one launch counted as `resblock_group_packed` and none as
     `resblock_group`; its gradients against autograd through the plain
     packed version (rel_l2 < 1e-5)."""
     g = _gen(dev, C + T)
@@ -597,7 +638,7 @@ def test_resblock_group_packed(dev, C, T):
     ks, dil = (3, 7, 11), ((1, 3, 5),) * 3
     before = dict(LAUNCHES)
     got = KR.resblock_group_packed(xp, weights, ks, dil, C, T)
-    assert LAUNCHES["resblock_group_packed"] == before["resblock_group_packed"] + 9
+    assert LAUNCHES["resblock_group_packed"] == before["resblock_group_packed"] + 1
     assert LAUNCHES["resblock_group"] == before["resblock_group"]
     got = got.reshape(2, rows * P, C)
     assert not got[:, T:].any()
