@@ -1,0 +1,13 @@
+"""Device milliseconds per converted second of audio of the kernels
+launched inside the range `portbench/synthesizer`, which the benchmark opens
+around the `Pipeline` instance's _synthesize, from the device trace."""
+
+RANGE = "portbench/synthesizer"
+WRAP = "pipeline._synthesize"
+
+
+def read(ctx):
+    s = ctx.trace.device_s_in.get(RANGE)
+    if s is None or not ctx.snap.work:
+        return None
+    return 1e3 * s / ctx.snap.work
