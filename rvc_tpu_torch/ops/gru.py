@@ -10,12 +10,16 @@ weight_ih / weight_hh as [r; z; n]:
 
 so the reference's hand-written scan is `nn.GRU` here (no Pallas kernel
 lives in it). The module keeps the upstream name `gru` for its weights.
+With RVC_TPU_TRACE=1 a forward is the span rmvpe/bigru (RMVPE's only
+recurrence: cuDNN steps it frame by frame).
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from rvc_tpu_torch.utils.profiling import trace_span
 
 
 class BiGRU(nn.Module):
@@ -28,4 +32,5 @@ class BiGRU(nn.Module):
                           batch_first=True, bidirectional=True)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.gru(x)[0]
+        with trace_span("rmvpe/bigru"):
+            return self.gru(x)[0]

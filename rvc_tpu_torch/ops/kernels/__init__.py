@@ -16,7 +16,10 @@ the same signature, which it runs for CPU tensors (the `_tp` wrappers:
 `LAUNCHES` counts each wrapper's kernel launches (and nothing else), so a
 run can show that the main path went through the kernels; `count_launch`
 adds one under a lock (`BatchConverter`'s mesh launches from one host
-thread per device). `record_calls`
+thread per device). `CONVERSIONS` counts K1/K2's weight conversions
+(`resblock.cached`'s misses) by `cached`'s tag: "stage" for the one-pass
+kernel's buffers, "step" for the per-step kernel's; `reset_launches` zeroes
+both counters, `count_launch(tag, CONVERSIONS)` adds to the second. `record_calls`
 keeps a copy of every wrapper call made inside it, so the calls a run
 made can be replayed and timed one by one (detached copies: a recording
 holds no autograd graph). K1/K2's weight conversions are cached per
@@ -45,19 +48,21 @@ import torch
 LAUNCHES = {"resblock_group": 0, "resblock_chain": 0, "rel_attention": 0,
             "log_mel": 0, "resblock_group_tp": 0, "resblock_chain_tp": 0,
             "resblock_group_packed": 0}
+CONVERSIONS = {"stage": 0, "step": 0}
 
 _recording: Optional[List[tuple]] = None
 _count_lock = threading.Lock()
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counter in (LAUNCHES, CONVERSIONS):
+        for name in counter:
+            counter[name] = 0
 
 
-def count_launch(name: str) -> None:
+def count_launch(name: str, counter: dict = LAUNCHES) -> None:
     with _count_lock:
-        LAUNCHES[name] += 1
+        counter[name] = counter.get(name, 0) + 1
 
 
 def _copy(obj):

@@ -87,9 +87,10 @@ import torch
 from torch.nn import functional as F
 
 from rvc_tpu_torch.ops import conv as conv_ops
-from rvc_tpu_torch.ops.kernels import build, count_launch, plain_vjp, recorded
+from rvc_tpu_torch.ops.kernels import CONVERSIONS, build, count_launch, plain_vjp, recorded
 from rvc_tpu_torch.parallel.mesh import Axis
 from rvc_tpu_torch.parallel.tp import all_reduce_model, copy_to_model, reduce_from_model
+from rvc_tpu_torch.utils.profiling import trace_span
 
 CHANNELS = (32, 64, 128, 256)
 TP_SHAPES = ((128, 64), (128, 32), (256, 128), (256, 64))     # (C, C_M) of the partial launch
@@ -410,16 +411,17 @@ def cached(tag: str, tensors: Sequence[torch.Tensor], make: Callable[[], object]
     every tensor is the same object with the same `_version` (an in-place
     update, an optimizer step, bumps it), else made anew. An entry is
     dropped when a source tensor is freed. Inference tensors have no
-    version, so their results are never kept."""
+    version, so their results are never kept. Each make() counts in
+    `CONVERSIONS[tag]` and is the span kernels/convert_weights."""
     if any(t.is_inference() for t in tensors):
-        return make()
+        return _convert(tag, make)
     key = (tag,) + tuple(id(t) for t in tensors)
     versions = tuple(t._version for t in tensors)
     with _cache_lock:
         hit = _CACHE.get(key)
     if hit is not None and hit[1] == versions and all(r() is t for r, t in zip(hit[0], tensors)):
         return hit[2]
-    value = make()
+    value = _convert(tag, make)
 
     def forget(_, key=key):
         with _cache_lock:
@@ -428,6 +430,12 @@ def cached(tag: str, tensors: Sequence[torch.Tensor], make: Callable[[], object]
     with _cache_lock:
         _CACHE[key] = (tuple(weakref.ref(t, forget) for t in tensors), versions, value)
     return value
+
+
+def _convert(tag: str, make: Callable[[], object]):
+    count_launch(tag, CONVERSIONS)
+    with trace_span("kernels/convert_weights"):
+        return make()
 
 
 def drop_cached(tensors: Sequence[torch.Tensor]) -> int:

@@ -36,7 +36,7 @@ dispatch/fused_convert around each fused chunk, and inside it
 host/pad+upload, dispatch/f0_program, dispatch/conv_program and
 fetch/materialize (the chunk's read-back); host/get_f0 for each staged
 chunk with pitch; host/post around the RMS envelope and the peak
-normalisation.
+normalisation. A `pipeline` call is one request: its spans carry one id.
 """
 
 from __future__ import annotations
@@ -59,7 +59,7 @@ from rvc_tpu_torch.pitch.autotune import NOTE_TABLE
 from rvc_tpu_torch.retrieval.ivf import IVFFlatIndex, index_blend
 from rvc_tpu_torch.utils import audio as audio_utils
 from rvc_tpu_torch.utils.device import bf16_f0, compute_dtype
-from rvc_tpu_torch.utils.profiling import trace_span
+from rvc_tpu_torch.utils.profiling import trace_request, trace_span
 
 SAMPLE_RATE = 16000
 WINDOW = 160
@@ -399,49 +399,50 @@ class Pipeline:
         host. An f0 model without pitch guidance raises (its NSF decoder
         needs an f0).
         """
-        use_f0 = self.synthesizer.use_f0
-        if use_f0 and not pitch_guidance:
-            raise ValueError("pitch_guidance=False needs an f0-less model: an f0 model's "
-                             "NSF decoder needs pitch")
-        with trace_span("host/highpass"):
-            audio = audio_utils.highpass_filter(np.asarray(audio, dtype=np.float32),
-                                                SAMPLE_RATE, 48.0, 5)
-        t_pad = self.t_pad
-        audio_pad = np.pad(audio, (t_pad, t_pad), mode="reflect")
-        # the user's f0 curve, padded once to the padded audio's frame grid so
-        # each chunk slices its own window
-        input_f0_pad = None
-        if input_f0 is not None:
-            pw = t_pad // self.window
-            input_f0_pad = np.pad(np.asarray(input_f0, dtype=np.float32), (pw, pw),
-                                  mode="edge")
-        fused = use_f0 and f0_method == "rmvpe" and input_f0 is None and not proposed_pitch
-        pad_tgt = int(t_pad * (self.tgt_sr / SAMPLE_RATE))
-        out_chunks = []
-        for s, e in self.chunk_bounds(audio):
-            chunk = audio_pad[s: e + 2 * t_pad]
-            if fused:
-                with trace_span("dispatch/fused_convert"):
-                    out_chunks.append(self.convert_chunk(
-                        chunk, sid, pitch_shift, f0_autotune_strength if f0_autotune else 0.0,
-                        protect, trim_frames=t_pad // self.window, index=index,
-                        index_rate=index_rate))
-                continue
-            pitch = pitchf = None
-            if use_f0:
-                chunk_f0 = None
-                if input_f0_pad is not None:
-                    chunk_f0 = input_f0_pad[s // self.window: (e + 2 * t_pad) // self.window]
-                with trace_span("host/get_f0"):
-                    pitch, pitchf = self.get_f0(
-                        chunk, len(chunk) // self.window, f0_method, pitch_shift, f0_autotune,
-                        f0_autotune_strength, chunk_f0, proposed_pitch,
-                        proposed_pitch_threshold, f0_hop_length)
-            conv = self.voice_conversion(chunk, pitch, pitchf, sid, index, index_rate, protect)
-            out_chunks.append(conv[pad_tgt:-pad_tgt] if pad_tgt else conv)
-        out = np.concatenate(out_chunks)
-        with trace_span("host/post"):
-            if volume_envelope != 1:
-                out = audio_utils.change_rms(audio, SAMPLE_RATE, out, self.tgt_sr,
-                                             volume_envelope)
-            return audio_utils.peak_normalize(out, 0.99)
+        with trace_request():
+            use_f0 = self.synthesizer.use_f0
+            if use_f0 and not pitch_guidance:
+                raise ValueError("pitch_guidance=False needs an f0-less model: an f0 model's "
+                                 "NSF decoder needs pitch")
+            with trace_span("host/highpass"):
+                audio = audio_utils.highpass_filter(np.asarray(audio, dtype=np.float32),
+                                                    SAMPLE_RATE, 48.0, 5)
+            t_pad = self.t_pad
+            audio_pad = np.pad(audio, (t_pad, t_pad), mode="reflect")
+            # the user's f0 curve, padded once to the padded audio's frame grid so
+            # each chunk slices its own window
+            input_f0_pad = None
+            if input_f0 is not None:
+                pw = t_pad // self.window
+                input_f0_pad = np.pad(np.asarray(input_f0, dtype=np.float32), (pw, pw),
+                                      mode="edge")
+            fused = use_f0 and f0_method == "rmvpe" and input_f0 is None and not proposed_pitch
+            pad_tgt = int(t_pad * (self.tgt_sr / SAMPLE_RATE))
+            out_chunks = []
+            for s, e in self.chunk_bounds(audio):
+                chunk = audio_pad[s: e + 2 * t_pad]
+                if fused:
+                    with trace_span("dispatch/fused_convert"):
+                        out_chunks.append(self.convert_chunk(
+                            chunk, sid, pitch_shift, f0_autotune_strength if f0_autotune else 0.0,
+                            protect, trim_frames=t_pad // self.window, index=index,
+                            index_rate=index_rate))
+                    continue
+                pitch = pitchf = None
+                if use_f0:
+                    chunk_f0 = None
+                    if input_f0_pad is not None:
+                        chunk_f0 = input_f0_pad[s // self.window: (e + 2 * t_pad) // self.window]
+                    with trace_span("host/get_f0"):
+                        pitch, pitchf = self.get_f0(
+                            chunk, len(chunk) // self.window, f0_method, pitch_shift, f0_autotune,
+                            f0_autotune_strength, chunk_f0, proposed_pitch,
+                            proposed_pitch_threshold, f0_hop_length)
+                conv = self.voice_conversion(chunk, pitch, pitchf, sid, index, index_rate, protect)
+                out_chunks.append(conv[pad_tgt:-pad_tgt] if pad_tgt else conv)
+            out = np.concatenate(out_chunks)
+            with trace_span("host/post"):
+                if volume_envelope != 1:
+                    out = audio_utils.change_rms(audio, SAMPLE_RATE, out, self.tgt_sr,
+                                                 volume_envelope)
+                return audio_utils.peak_normalize(out, 0.99)

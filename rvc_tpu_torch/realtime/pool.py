@@ -14,6 +14,11 @@ All streams share one model; per-stream speaker ids are a vector, and
 differs from the single stream's short-circuit, as in the reference:
 every stream is converted, and a gated stream's output is zeroed after
 SOLA. Each stream's SOLA step is the single stream's (`sola_crossfade`).
+
+With RVC_TPU_TRACE=1 a step is the span pool/step (its request id the
+step's number) over pool/resample_in (to 16 kHz, the circular buffers, the
+gate volumes), pool/dispatch (pad, upload, the block program's launches),
+pool/readback, pool/resample_out and pool/sola (every stream's).
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ from rvc_tpu_torch.realtime.core import (
 from rvc_tpu_torch.realtime.buffer import circular_write
 from rvc_tpu_torch.utils import audio as audio_utils
 from rvc_tpu_torch.utils.device import to_device
+from rvc_tpu_torch.utils.profiling import trace_span
 
 
 class VoiceChangerPool:
@@ -40,6 +46,8 @@ class VoiceChangerPool:
 
     rvc: `rvc_tpu_torch.api.RVC` with an f0 model; the streams convert with
     RMVPE pitch on the fused path."""
+
+    steps = 0       # steps processed: the next step's request id
 
     def __init__(
         self,
@@ -101,25 +109,29 @@ class VoiceChangerPool:
     # ------------------------------------------------------------------
     def _convert(self, blocks48: np.ndarray, pitch_shift: float,
                  protect: float, index_rate: float) -> np.ndarray:
-        a16 = audio_utils.resample(blocks48, AUDIO_SAMPLE_RATE, SAMPLE_RATE)
-        for s in range(self.n):
-            circular_write(a16[s], self.audio_buffer[s])
-            circular_write(a16[s], self.convert_buffer[s])
-        self._vols = np.sqrt(np.mean(self.audio_buffer ** 2, axis=1))
+        with trace_span("pool/resample_in"):
+            a16 = audio_utils.resample(blocks48, AUDIO_SAMPLE_RATE, SAMPLE_RATE)
+            for s in range(self.n):
+                circular_write(a16[s], self.audio_buffer[s])
+                circular_write(a16[s], self.convert_buffer[s])
+            self._vols = np.sqrt(np.mean(self.audio_buffer ** 2, axis=1))
 
-        use_index = index_rate > 0 and self.rvc.index is not None
-        fn = self._fn(use_index)
-        buf = self.convert_buffer
-        if self._block_pad:
-            buf = np.pad(buf, ((0, 0), (0, self._block_pad)), mode="reflect")
-        out, self._pitchf_dev = fn(
-            to_device(buf, self.rvc.pipeline.device), self._pitchf_dev, self._sids_dev,
-            float(protect), float(pitch_shift), 0.0,
-            index=self.rvc.index if use_index else None, index_rate=float(index_rate))
-        out = out.cpu().numpy()
-        if self.rvc.cfg.data.sample_rate != AUDIO_SAMPLE_RATE:
-            out = audio_utils.resample(out, self.rvc.cfg.data.sample_rate,
-                                       AUDIO_SAMPLE_RATE)
+        with trace_span("pool/dispatch"):
+            use_index = index_rate > 0 and self.rvc.index is not None
+            fn = self._fn(use_index)
+            buf = self.convert_buffer
+            if self._block_pad:
+                buf = np.pad(buf, ((0, 0), (0, self._block_pad)), mode="reflect")
+            out, self._pitchf_dev = fn(
+                to_device(buf, self.rvc.pipeline.device), self._pitchf_dev, self._sids_dev,
+                float(protect), float(pitch_shift), 0.0,
+                index=self.rvc.index if use_index else None, index_rate=float(index_rate))
+        with trace_span("pool/readback"):
+            out = out.cpu().numpy()
+        with trace_span("pool/resample_out"):
+            if self.rvc.cfg.data.sample_rate != AUDIO_SAMPLE_RATE:
+                out = audio_utils.resample(out, self.rvc.cfg.data.sample_rate,
+                                           AUDIO_SAMPLE_RATE)
         return out
 
     def process(self, blocks: np.ndarray, pitch_shift: float = 0.0,
@@ -130,10 +142,14 @@ class VoiceChangerPool:
         as the single-stream engine does (`core.sola_crossfade`)."""
         if blocks.shape != (self.n, self.block_frame):
             raise ValueError(f"blocks {blocks.shape}: want {(self.n, self.block_frame)}")
-        audio = self._convert(blocks, pitch_shift, protect, index_rate)
-        outs = np.empty((self.n, self.block_frame), np.float32)
-        for s in range(self.n):
-            out = sola_crossfade(audio[s], self.sola_buffer[s], self.fade_in, self.fade_out,
-                                 self.block_frame, self.sola_search_frame)
-            outs[s] = 0.0 if self._vols[s] < self.input_sensitivity else out
+        with trace_span("pool/step", request=self.steps):
+            self.steps += 1
+            audio = self._convert(blocks, pitch_shift, protect, index_rate)
+            outs = np.empty((self.n, self.block_frame), np.float32)
+            with trace_span("pool/sola"):
+                for s in range(self.n):
+                    out = sola_crossfade(audio[s], self.sola_buffer[s], self.fade_in,
+                                         self.fade_out, self.block_frame,
+                                         self.sola_search_frame)
+                    outs[s] = 0.0 if self._vols[s] < self.input_sensitivity else out
         return outs, self._vols

@@ -21,6 +21,9 @@ skipped (parameters, moments, count), without a read-back to the host.
 parameter (ZeRO-1): `_local` cuts what a rank updates, `_share` gathers
 the updated slices, and `norm` sums a tensor-parallel rank's shards over
 its model group; here both are the whole, and the norm `global_norm`.
+
+With RVC_TPU_TRACE=1 each `step` is the span optim/adamw (ZeRO's step
+too).
 """
 
 from __future__ import annotations
@@ -28,6 +31,8 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Sequence
 
 import torch
+
+from rvc_tpu_torch.utils.profiling import trace_span
 
 MAX_NORM = 1.0        # clip_by_global_norm(1.0)
 WEIGHT_DECAY = 0.01   # adamw's decoupled decay
@@ -87,29 +92,30 @@ class AdamW:
     def step(self, grads: Sequence[torch.Tensor], gate: Optional[torch.Tensor] = None) -> None:
         """One update from `grads` (one per parameter, in order); with `gate`
         (a 0-dim bool tensor) False, nothing changes."""
-        g_norm = self.norm(grads)
-        keep = g_norm < MAX_NORM
-        count = self.count + 1
-        lr = self.learning_rate(self.count)
-        bc1 = 1.0 - torch.pow(torch.tensor(self.b1, device=count.device), count.float())
-        bc2 = 1.0 - torch.pow(torch.tensor(self.b2, device=count.device), count.float())
-        for i, (p, g, mu, nu) in enumerate(zip(self.params, grads, self.mu, self.nu)):
-            p, g = self._local(i, p), self._local(i, g)
-            g = torch.where(keep, g, g / g_norm * MAX_NORM)
-            m = (1.0 - self.b1) * g + self.b1_mu * mu.float()
-            v = (1.0 - self.b2) * g ** 2 + self.b2 * nu
-            u = (m / bc1) / (torch.sqrt(v / bc2) + self.eps) + WEIGHT_DECAY * p
-            new = p + (-lr) * u
-            if gate is None:
-                p.copy_(new)
-                mu.copy_(m)
-                nu.copy_(v)
-            else:
-                p.copy_(torch.where(gate, new, p))
-                mu.copy_(torch.where(gate, m.to(mu.dtype), mu))
-                nu.copy_(torch.where(gate, v, nu))
-        self.count = count if gate is None else torch.where(gate, count, self.count)
-        self._share()
+        with trace_span("optim/adamw"):
+            g_norm = self.norm(grads)
+            keep = g_norm < MAX_NORM
+            count = self.count + 1
+            lr = self.learning_rate(self.count)
+            bc1 = 1.0 - torch.pow(torch.tensor(self.b1, device=count.device), count.float())
+            bc2 = 1.0 - torch.pow(torch.tensor(self.b2, device=count.device), count.float())
+            for i, (p, g, mu, nu) in enumerate(zip(self.params, grads, self.mu, self.nu)):
+                p, g = self._local(i, p), self._local(i, g)
+                g = torch.where(keep, g, g / g_norm * MAX_NORM)
+                m = (1.0 - self.b1) * g + self.b1_mu * mu.float()
+                v = (1.0 - self.b2) * g ** 2 + self.b2 * nu
+                u = (m / bc1) / (torch.sqrt(v / bc2) + self.eps) + WEIGHT_DECAY * p
+                new = p + (-lr) * u
+                if gate is None:
+                    p.copy_(new)
+                    mu.copy_(m)
+                    nu.copy_(v)
+                else:
+                    p.copy_(torch.where(gate, new, p))
+                    mu.copy_(torch.where(gate, m.to(mu.dtype), mu))
+                    nu.copy_(torch.where(gate, v, nu))
+            self.count = count if gate is None else torch.where(gate, count, self.count)
+            self._share()
 
     def state_dict(self) -> Dict[str, object]:
         return {"mu": [t.detach().cpu() for t in self.mu],

@@ -10,6 +10,10 @@ updates on the detached segment, each skipped whole while its loss is
 under `d_loss_threshold` (decided on the device). The reference runs it
 as one jitted program; here it runs eagerly, with K1-K3 under autograd
 (`ops/kernels`) and no read-back to the host inside the step.
+
+With RVC_TPU_TRACE=1 a step is the span train/step (its request id the
+step's number) over train/g_forward, train/g_backward, G's optim/adamw and
+one train/d_update (with D's optim/adamw) per D update.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from rvc_tpu_torch.ops.commons import slice_segments
 from rvc_tpu_torch.ops.stft import mel_spectrogram
 from rvc_tpu_torch.train import losses as L
 from rvc_tpu_torch.train.optim import AdamW, sanitize_grads
+from rvc_tpu_torch.utils.profiling import trace_span
 
 METRICS = ("loss_g_total", "loss_d", "loss_mel", "loss_kl", "loss_adv", "loss_fm",
            "grad_norm_g")
@@ -64,6 +69,8 @@ class TrainStep:
     eps / ids_slice / source_noise hand the generator's draws in (the
     tests hand the reference's across); without them they come from
     `generator`."""
+
+    steps = 0       # steps made: the next step's request id
 
     def __init__(self, cfg: RVCConfig, net_g: nn.Module, net_d: nn.Module,
                  g_opt: AdamW, d_opt: AdamW, adversarial: bool = True,
@@ -142,27 +149,32 @@ class TrainStep:
 
     def d_update(self, wave_real: torch.Tensor, y_hat: torch.Tensor) -> torch.Tensor:
         """One D update on detached segments; returns its loss (before it)."""
-        params = self.d_opt.params
-        loss = self.d_loss(wave_real, y_hat)
-        grads = sanitize_grads(self.reduce_grads(list(torch.autograd.grad(loss, params)),
-                                                 params))
-        loss = self.reduce_loss(loss.detach())
-        threshold = self.cfg.train.d_loss_threshold
-        self.d_opt.step(grads, gate=loss >= threshold if threshold > 0 else None)
+        with trace_span("train/d_update"):
+            params = self.d_opt.params
+            loss = self.d_loss(wave_real, y_hat)
+            grads = sanitize_grads(self.reduce_grads(list(torch.autograd.grad(loss, params)),
+                                                     params))
+            loss = self.reduce_loss(loss.detach())
+            threshold = self.cfg.train.d_loss_threshold
+            self.d_opt.step(grads, gate=loss >= threshold if threshold > 0 else None)
         return loss
 
     def __call__(self, batch: Batch, generator: Optional[torch.Generator] = None,
                  **draws) -> Dict[str, torch.Tensor]:
-        self.net_d.requires_grad_(False)      # G's loss takes no D gradient
-        try:
-            total, losses, y_hat, wave_real = self.g_losses(batch, generator, **draws)
-            grads = self.g_grads(total)
-        finally:
-            self.net_d.requires_grad_(True)
-        self.g_opt.step(grads)
-        y_hat, wave_real = y_hat.detach(), wave_real.detach()
-        for _ in range(max(self.cfg.train.d_step_per_g_step, 1)):
-            loss_d = self.d_update(wave_real, y_hat)
-        return dict(loss_g_total=total.detach(), loss_d=loss_d,
-                    **{k: v.detach() for k, v in losses.items()},
-                    grad_norm_g=self.g_opt.norm(grads))
+        with trace_span("train/step", request=self.steps):
+            self.steps += 1
+            self.net_d.requires_grad_(False)      # G's loss takes no D gradient
+            try:
+                with trace_span("train/g_forward"):
+                    total, losses, y_hat, wave_real = self.g_losses(batch, generator, **draws)
+                with trace_span("train/g_backward"):
+                    grads = self.g_grads(total)
+            finally:
+                self.net_d.requires_grad_(True)
+            self.g_opt.step(grads)
+            y_hat, wave_real = y_hat.detach(), wave_real.detach()
+            for _ in range(max(self.cfg.train.d_step_per_g_step, 1)):
+                loss_d = self.d_update(wave_real, y_hat)
+            return dict(loss_g_total=total.detach(), loss_d=loss_d,
+                        **{k: v.detach() for k, v in losses.items()},
+                        grad_norm_g=self.g_opt.norm(grads))

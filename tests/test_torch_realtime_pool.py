@@ -25,7 +25,9 @@ from rvc_tpu.realtime.pool import VoiceChangerPool as JaxPool
 from rvc_tpu_torch.realtime import pool as pool_module
 from rvc_tpu_torch.realtime.core import VoiceChanger
 from rvc_tpu_torch.realtime.pool import VoiceChangerPool
+from rvc_tpu_torch.utils import profiling
 from test_torch_realtime import BLOCK, SESSION, _assert_block, _assert_pitch, _clip48, make_pair
+from torch_port_helpers import assert_nested, span_tree
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -102,3 +104,28 @@ def test_pool_checks_its_inputs(pair):
     pool = VoiceChangerPool(pair.port, 2, **SESSION)
     with pytest.raises(ValueError, match="blocks"):
         pool.process(np.zeros((3, BLOCK), np.float32))
+
+
+def test_pool_step_spans(pair, monkeypatch):
+    """With RVC_TPU_TRACE=1 each `process` step opens one pool/step, its
+    request id the step's number, over the five phases; the block program's
+    RMVPE opens its rmvpe/bigru inside pool/dispatch. No K1/K2 weight
+    conversion: the kernels' plain versions run on the CPU."""
+    monkeypatch.setenv("RVC_TPU_TRACE", "1")
+    monkeypatch.setattr(profiling, "_GLOBAL", profiling.SpanTimer())
+    pool = VoiceChangerPool(pair.port, 2, sids=[0, 1], silent_threshold=-90, **SESSION)
+    streams = _streams(2)
+    for i in range(2):
+        pool.process(streams[:, i * BLOCK: (i + 1) * BLOCK])
+    spans = profiling.global_tracer().spans()
+    assert_nested(spans)
+    assert span_tree(spans) == {
+        "pool/step": 2, "pool/step > pool/resample_in": 2, "pool/step > pool/dispatch": 2,
+        "pool/step > pool/dispatch > rmvpe/bigru": 2, "pool/step > pool/readback": 2,
+        "pool/step > pool/resample_out": 2, "pool/step > pool/sola": 2}
+    assert [s.request for s in spans if s.name == "pool/step"] == [0, 1]
+    assert [s.request for s in spans if s.name == "pool/sola"] == [0, 1]
+    order = [s.name for s in spans if s.request == 1 and s.parent is not None
+             and s.name != "rmvpe/bigru"]
+    assert order == ["pool/resample_in", "pool/dispatch", "pool/readback",
+                     "pool/resample_out", "pool/sola"]

@@ -17,7 +17,9 @@ from rvc_tpu.models.synthesizer import build_synthesizer as jax_build
 from rvc_tpu.train import train_step as JT
 from rvc_tpu_torch.train.optim import AdamW
 from rvc_tpu_torch.train.train_step import Batch, TrainStep, make_optimizers
-from torch_port_helpers import jax_draws, t, train_batch, train_configs, train_pair
+from rvc_tpu_torch.utils import profiling
+from torch_port_helpers import (assert_nested, jax_draws, span_tree, t, train_batch,
+                                train_configs, train_pair)
 
 LOSSES = ("loss_g_total", "loss_d", "loss_mel", "loss_kl", "loss_adv", "loss_fm")
 KEY = 5
@@ -141,3 +143,30 @@ def test_optimizer_matches_optax(use_bf16):
     frozen = port[keys.index("enc_p")].numpy()
     assert (np.abs(frozen) < np.abs(params["enc_p"])).all()   # decayed while frozen
     np.testing.assert_allclose(frozen, np.asarray(jp["enc_p"]), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("d_steps", [1, 2])
+def test_step_spans(monkeypatch, d_steps):
+    """With RVC_TPU_TRACE=1 a step opens one train/step, its request id the
+    step's number, over G's forward, backward and optim/adamw, then one
+    train/d_update (with D's optim/adamw) per D update. No K1/K2 weight
+    conversion: the kernels' plain versions run on the CPU."""
+    monkeypatch.setenv("RVC_TPU_TRACE", "1")
+    monkeypatch.setattr(profiling, "_GLOBAL", profiling.SpanTimer())
+    _, cfg = train_configs(train_d_step_per_g_step=d_steps)
+    net_g, net_d, _, _ = train_pair(3, train_d_step_per_g_step=d_steps)
+    g_opt, d_opt = make_optimizers(cfg, net_g, net_d, 100)
+    step = TrainStep(cfg, net_g, net_d, g_opt, d_opt)
+    b = Batch(*(t(x) for x in train_batch(cfg, 3)))
+    b = b._replace(pitch=b.pitch.long(), sid=b.sid.long())
+    for _ in range(2):
+        step(b, generator=torch.Generator().manual_seed(0))
+    spans = profiling.global_tracer().spans()
+    assert_nested(spans)
+    assert span_tree(spans) == {
+        "train/step": 2, "train/step > train/g_forward": 2, "train/step > train/g_backward": 2,
+        "train/step > optim/adamw": 2, "train/step > train/d_update": 2 * d_steps,
+        "train/step > train/d_update > optim/adamw": 2 * d_steps}
+    assert [s.request for s in spans if s.name == "train/step"] == [0, 1]
+    assert [s.name for s in spans if s.request == 1][:3] == [
+        "train/g_forward", "train/g_backward", "optim/adamw"]

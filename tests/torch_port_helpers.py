@@ -207,3 +207,28 @@ def partial_chain_job(path: str) -> None:
         out[name] = (y.detach(), [g.detach() for g in torch.autograd.grad(
             y, leaves, grad)])
     torch.save(out, f"{path}.rank{model.index}")
+
+
+def span_tree(spans) -> dict:
+    """{path from the root, "a > b": count} of `profiling.Span` records."""
+    by_id = {s.id: s for s in spans}
+    paths: dict = {}
+    for s in spans:
+        path, p = [s.name], s.parent
+        while p is not None:
+            path.insert(0, by_id[p].name)
+            p = by_id[p].parent
+        key = " > ".join(path)
+        paths[key] = paths.get(key, 0) + 1
+    return paths
+
+
+def assert_nested(spans) -> None:
+    """Every span's child lies inside it, on its thread, with its request id."""
+    by_id = {s.id: s for s in spans}
+    for s in spans:
+        assert s.start_ns <= s.end_ns
+        if s.parent is not None:
+            p = by_id[s.parent]
+            assert p.start_ns <= s.start_ns and s.end_ns <= p.end_ns, (s, p)
+            assert s.thread == p.thread and s.request == p.request, (s, p)
