@@ -135,6 +135,19 @@ Phases, one JSON line each (a `kernel` line per kernel call):
             call of one N = 16 step held, with grid); 10 blocks over
             `RealtimeSocketServer` on 127.0.0.1 (ms per round trip; replies
             within 1e-4 of an in-process engine)
+  adamw     the training step's AdamW kernel (`ops.kernels.adamw`) on the
+            48 kHz model's G and D at full width, bf16 and float32 first
+            moments: gradients with NaN, +-inf and values past 1e3 (the norm
+            over 1) or small ones (under 1), gate None or False, two steps
+            across a steps_per_epoch boundary, each from the same state as
+            the plain versions on the card: the norm within rel_l2 1e-6 of
+            theirs and of float64; the parameters' change and both moments
+            within 1e-6 per tensor of the plain loop given the kernel's norm,
+            and within 1e-5 (a bf16 first moment 1e-4) of `adamw_reference`
+            with its own norm; the count; a False gate changes nothing. Then
+            a `kernel` line per network and moment type: ms, held_stream_ms
+            (its device time: CUDA events around the call on a stream held
+            while the host queues it), plain_ms and the bytes bound
   train     a voice model made as users make one, at the 48 kHz model's full
             width (random init from seed 0): 2 speakers x 3 seeded harmonic
             utterances of 10 s through the port's AudioPreprocessor
@@ -226,7 +239,8 @@ over the train phase's extraction and `train_step` per step;
 their 3 steps, `tp_gloo_rank0` / `tp_gloo_rank1` over theirs and
 `ddp_nccl` over its epoch, `frontends_download` / `frontends_tts` /
 `frontends_trace` over one conversion each, `bf16_main` / `f32_main` /
-`bf16_batch` / `bf16_block` from the bf16 phase; K3's line names its rows,
+`bf16_batch` / `bf16_block` from the bf16 phase; AdamW's line sums G's and
+D's bf16 calls, one training step; K3's line names its rows,
 bf16 on the main path, and a second K3 line holds the float32 entry from
 the bf16 phase; the `_tp` variants' lines from
 `tp_gloo`, their calls on rank 0 in one step; K1-packed's from the
@@ -1616,7 +1630,7 @@ VOCODERS = {"mrf": "MRF HiFi-GAN", "refinegan": "RefineGAN"}
 # plain torch decoders: K1/K2 are not reached, as in the reference
 VOCODER_LAUNCHES = {"resblock_group": 0, "resblock_chain": 0, "rel_attention": 6, "log_mel": 1,
                     "resblock_group_tp": 0, "resblock_chain_tp": 0,
-                    "resblock_group_packed": 0}
+                    "resblock_group_packed": 0, "adamw": 0}
 
 
 def decoder_inputs(rvc, clip) -> tuple:
@@ -1850,7 +1864,7 @@ CHUNK_S, PAD_S, LONG_BATCH = 10.0, 1.0, 8
 AB_UTTS, AB_BATCHES = 16, (1, 8, 16)
 LONG_LAUNCHES = {"resblock_group": 3, "resblock_chain": 9, "rel_attention": 6, "log_mel": 1,
                  "resblock_group_tp": 0, "resblock_chain_tp": 0,
-                 "resblock_group_packed": 0}
+                 "resblock_group_packed": 0, "adamw": 0}
 
 
 def synth_utterances(n: int, seconds: float, sr: int = 16000):
@@ -1997,7 +2011,7 @@ POOL_NS, POOL_STEPS = (1, 4, 16), 8
 TCP_BLOCKS = 10
 RT_LAUNCHES = {"resblock_group": 3, "resblock_chain": 9, "rel_attention": 6, "log_mel": 1,
                "resblock_group_tp": 0, "resblock_chain_tp": 0,
-               "resblock_group_packed": 0}
+               "resblock_group_packed": 0, "adamw": 0}
 
 
 def rt_clip48(n_blocks: int, block: int, seed: int):
@@ -2359,10 +2373,226 @@ TRAIN_VOCODER_STEPS = 2
 TRAIN_PARITY_B = 2
 TRAIN_LAUNCHES = {"resblock_group": 3, "resblock_chain": 9, "rel_attention": 6, "log_mel": 0,
                   "resblock_group_tp": 0, "resblock_chain_tp": 0,
-                  "resblock_group_packed": 0}
+                  "resblock_group_packed": 0, "adamw": 2}   # G's AdamW and D's
 TRAIN_GRAD_BAR = 1e-5          # each Function's gradients against the plain autograd's
 TRAIN_DEVICE = "cuda"          # a CPU rehearsal sets "cpu" and shrinks TRAIN_CFG
 TRAIN_CFG = {}                 # get_config(48000, ...) overrides; none: full width
+
+
+ADAMW = dict(name="AdamW adamw", entry="rvc_adamw", source="rvc_tpu_torch/csrc/adamw.cu",
+             replaces="none: the optax chain XLA fuses in rvc_tpu/train/train_step.py",
+             peak=PEAK_F32)
+ADAMW_BAR = 1e-6      # rel_l2 per tensor: the norm, the parameters' change, both moments
+# against `adamw_reference` with its own norm, whose last bit moves a parameter's
+# rounding (about 1e-6 of a tensor's change) and flips bf16 roundings of the first moment
+ADAMW_REF_BAR = {"p_change": 1e-5, "nu": 1e-5, "mu": 1e-5, "mu_bf16": 1e-4}
+ADAMW_SLEEP_CYCLES = 50_000_000     # ~25 ms of a held stream: the host queues a whole call
+ADAMW_FLOP = 20       # per parameter and step: the squares, the clip, the moments, the update
+ADAMW_SPE = 5         # steps_per_epoch: the second of a case's two steps decays the rate
+ADAMW_CASES = ((None, True), (None, False), (False, True))   # (gate, norm over 1)
+
+
+def adamw_grads(shapes, seed: int, over: bool) -> list:
+    """N(0, 1) gradients with a NaN first and +inf, -inf and 3e3 after it
+    in every tenth tensor (the norm over 1); else N(0, 1e-5) with the NaN
+    alone (under 1)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    grads = [torch.randn(s, device="cuda", generator=gen) * (1.0 if over else 1e-5)
+             for s in shapes]
+    for i, g in enumerate(grads):
+        g = g.view(-1)
+        g[:1] = float("nan")
+        if over and i % 10 == 0 and g.numel() >= 4:
+            g[1:4] = torch.tensor([float("inf"), -float("inf"), 3e3], device="cuda")
+    return grads
+
+
+def worst_rel_l2(got, ref) -> float:
+    """The largest per-tensor rel_l2 of `got` against `ref` (0 where a pair
+    is equal, inf where only the reference is all zero)."""
+    import torch
+
+    worst = 0.0
+    for a, b in zip(got, ref):
+        d = float(torch.linalg.vector_norm(a.double() - b.double()))
+        if d:
+            n = float(torch.linalg.vector_norm(b.double()))
+            worst = max(worst, d / n if n else math.inf)
+    return worst
+
+
+def adamw_case(opt, mu_dtype, gate, over: bool, seed: int) -> tuple:
+    """Two steps of `ops.kernels.adamw` from copies of `opt`'s parameters,
+    moments of a run under way and the count one step before an epoch
+    ends, each step from the same state as the plain version run on the
+    card: `adamw_reference` (its own sanitizing and norm, ADAMW_REF_BAR)
+    and the plain loop `adamw_update` given the kernel's norm (ADAMW_BAR).
+    Returns the worst distances and their bars, then the kernel's layout,
+    the last step's gradients, the count and the constants."""
+    import torch
+
+    from rvc_tpu_torch.ops.kernels import LAUNCHES
+    from rvc_tpu_torch.ops.kernels import adamw as K
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = [p.detach().clone() for p in opt.params]
+    mu = [(1e-3 * torch.randn(p.shape, device="cuda", generator=gen)).to(mu_dtype)
+          for p in params]
+    nu = [(1e-3 * torch.randn(p.shape, device="cuda", generator=gen)) ** 2 for p in params]
+    count = torch.tensor(ADAMW_SPE - 1, dtype=torch.int32, device="cuda")
+    h = opt.hyper._replace(b1_mu=torch.tensor(opt.hyper.b1, dtype=mu_dtype).item())
+    layout, n = K.Layout(params, mu, nu), len(params)
+    flag = None if gate is None else torch.tensor(gate, device="cuda")
+    out = dict(norm_vs_reference=0.0, norm_vs_float64=0.0, launches=0)
+    shapes = [tuple(p.shape) for p in params]
+
+    def state():
+        return [t.clone() for t in params + mu + nu] + [count.clone()]
+
+    for k in range(2):
+        grads = adamw_grads(shapes, seed + 1 + k, over)
+        before, ref, plain = state(), state(), state()
+        launches = LAUNCHES["adamw"]
+        norm = K.adamw(layout, grads, count, h, flag)
+        ref_norm = K.adamw_reference(K.Layout(ref[:n], ref[n:2 * n], ref[2 * n:3 * n]), grads,
+                                     ref[-1], h, flag)
+        clean = K.sanitize_grads(grads)
+        exact = torch.sqrt(sum(torch.sum(g.double() ** 2) for g in clean))
+        K.adamw_update(plain[:n], clean, plain[n:2 * n], plain[2 * n:3 * n], plain[-1], h, norm,
+                       flag)
+        del clean
+        out["launches"] += LAUNCHES["adamw"] - launches      # the plain versions launch none
+        got = params + mu + nu + [count]
+        out["norm"] = float(norm)
+        out["norm_vs_reference"] = max(out["norm_vs_reference"],
+                                       worst_rel_l2([norm], [ref_norm]))
+        out["norm_vs_float64"] = max(out["norm_vs_float64"], worst_rel_l2([norm], [exact]))
+        out["count"] = [int(count), int(ref[-1]), int(plain[-1])]
+        if gate is False:
+            out["unchanged"] = all(torch.equal(a, b) for a, b in zip(got, before))
+            out["reference_unchanged"] = all(torch.equal(a, b) for a, b in zip(ref, before))
+            continue
+        for side, other in (("plain", plain), ("reference", ref)):
+            for name, lo, hi in (("mu", n, 2 * n), ("nu", 2 * n, 3 * n)):
+                key = f"{name}_vs_{side}"
+                out[key] = max(out.get(key, 0.0), worst_rel_l2(got[lo:hi], other[lo:hi]))
+            key = f"p_change_vs_{side}"
+            out[key] = max(out.get(key, 0.0), worst_rel_l2(
+                [a - b for a, b in zip(params, before[:n])],
+                [a - b for a, b in zip(other[:n], before[:n])]))
+        del before, ref, plain
+    want = ADAMW_SPE - 1 if gate is False else ADAMW_SPE + 1
+    bars = {k: ADAMW_BAR for k in out
+            if k.endswith(("_vs_plain", "_vs_float64")) or k == "norm_vs_reference"}
+    for k in out:
+        if k.endswith("_vs_reference") and k != "norm_vs_reference":
+            name = k[:-len("_vs_reference")]
+            bf16 = name == "mu" and mu_dtype == torch.bfloat16
+            bars[k] = ADAMW_REF_BAR[name + ("_bf16" if bf16 else "")]
+    out["ok"] = (all(out[k] <= b for k, b in bars.items()) and out["count"] == [want] * 3
+                 and out["launches"] == 2 and out.get("unchanged", True)
+                 and out.get("reference_unchanged", True) and (out["norm"] > 1.0) == over)
+    out["bars"] = bars
+    return out, layout, grads, count, h
+
+
+def held_stream_ms(fn, reps: int = 5) -> float:
+    """Device ms of one fn() alone: CUDA events around it on a stream held
+    by a sleeping kernel while the host queues the call (the median of
+    reps), so the host's work before the launches is not timed."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(ADAMW_SLEEP_CYCLES)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    times.sort()
+    return times[len(times) // 2]
+
+
+def phase_adamw() -> dict:
+    """`ops.kernels.adamw` on the 48 kHz model's G and D at full width
+    (random init from seed 0, their optimizers' constants from
+    `make_optimizers` at ADAMW_SPE steps an epoch): for each and for bf16
+    and float32 first moments, the ADAMW_CASES (gate None or False, the
+    norm over or under 1) held by `adamw_case` at ADAMW_BAR (a False gate:
+    nothing changes, bit for bit; the count advances only where the gate
+    allows; one launch counted a call); then one call timed: ms (CUDA events
+    around one call, the host's work included), `held_stream_ms` (the
+    call's device time by CUDA events; torch.profiler read these kernels
+    at under half their bytes bound this late in the smoke), plain ms
+    (`adamw_reference` on the card), the bound (28 B a parameter with a
+    bf16 first moment, 32 with float32, at 3.35 TB/s). Returns the kernels
+    line's entry: G's and D's bf16 calls, one training step."""
+    import torch
+
+    from rvc_tpu_torch.configs import get_config
+    from rvc_tpu_torch.models.discriminators import build_discriminator
+    from rvc_tpu_torch.models.synthesizer import build_synthesizer
+    from rvc_tpu_torch.ops.kernels import adamw as K
+    from rvc_tpu_torch.train.train_step import make_optimizers
+
+    cfg = get_config(48000)
+    torch.manual_seed(SEED)
+    with torch.device("cuda"):
+        net_g, net_d = build_synthesizer(cfg, training=True), build_discriminator(cfg)
+    opts = dict(zip("GD", make_optimizers(cfg, net_g, net_d, steps_per_epoch=ADAMW_SPE)))
+    del net_g, net_d
+    total = dict(calls=0, flop=0, bytes=0, ms=0.0, plain_ms=0.0, held_stream_ms=0.0)
+    failed = []
+    for net, opt in opts.items():
+        for mu_dtype in (torch.bfloat16, torch.float32):
+            cases = {}
+            for i, (gate, over) in enumerate(ADAMW_CASES):
+                res, layout, grads, count, h = adamw_case(opt, mu_dtype, gate, over,
+                                                           SEED + 10 * i)
+                cases[f"gate={gate} norm_{'over' if over else 'under'}_1"] = res
+                if not res["ok"]:
+                    failed.append((net, str(mu_dtype), gate, over))
+                if gate is None and over:
+                    timed = (layout, grads, count, h)
+                del layout, grads, count
+            layout, grads, count, h = timed
+            ref = K.Layout(*[[t.clone() for t in ts] for ts in (layout.params, layout.mu,
+                                                                 layout.nu)])
+            ref_count = count.clone()
+            nparam = sum(layout.numels)
+            nbytes = nparam * (24 + 2 * layout.mu[0].element_size())
+            line = {"phase": "kernel", "name": f"{ADAMW['name']} ({net}, "
+                    f"{str(mu_dtype).replace('torch.', '')} first moment)",
+                    "inputs": {"tensors": len(layout), "params": nparam,
+                               "chunks": layout.n_chunks, "chunk": K.CHUNK},
+                    "cases": cases,
+                    "ms": cuda_ms(lambda: K.adamw(layout, grads, count, h)),
+                    "held_stream_ms": held_stream_ms(lambda: K.adamw(layout, grads, count, h)),
+                    "plain_ms": cuda_ms(lambda: K.adamw_reference(ref, grads, ref_count, h))}
+            line["bound_ms"], line["bound_by"] = bound(ADAMW_FLOP * nparam, nbytes,
+                                                       ADAMW["peak"])
+            emit({**line, "bound": bound_text(ADAMW["peak"])})
+            if mu_dtype == torch.bfloat16:
+                total["calls"] += 1
+                total["flop"] += ADAMW_FLOP * nparam
+                total["bytes"] += nbytes
+                for k in ("ms", "plain_ms", "held_stream_ms"):
+                    total[k] += line[k]
+            del layout, grads, count, ref, ref_count, timed
+    if failed:
+        raise AssertionError(f"adamw: the kernel missed its plain version in {failed}")
+    bound_ms, bound_by = bound(total["flop"], total["bytes"], ADAMW["peak"])
+    return dict(name=ADAMW["name"] + " (bf16 first moment)", route="cuda",
+                source=ADAMW["source"], entry=ADAMW["entry"], replaces=ADAMW["replaces"],
+                launches=total["calls"], calls=total["calls"], ms=total["ms"],
+                device_ms=None, held_stream_ms=total["held_stream_ms"],
+                plain_ms=total["plain_ms"], bound_ms=bound_ms,
+                bound_by=bound_by, bound=bound_text(ADAMW["peak"]), library_ms=None)
 
 
 def make_dataset(root: str) -> str:
@@ -2380,8 +2610,8 @@ def make_dataset(root: str) -> str:
 
 def train_split(step, batch, generator) -> dict:
     """One adversarial step split by CUDA events: G forward (the losses), G
-    backward (the sanitized gradients), G's optimizer, D forward and
-    backward, D's optimizer (ms each)."""
+    backward (the gradients), G's optimizer (which sanitizes them), D
+    forward and backward, D's optimizer (ms each)."""
     import torch
 
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
@@ -2875,6 +3105,7 @@ def phase_ddp_gloo(work: str) -> dict:
     identical = all(torch.equal(ranks[0][n][k], r[n][k]) for r in ranks[1:]
                     for n in ("g", "d") for k in ranks[0][n])
     want = {k: n * DDP_STEPS for k, n in TRAIN_LAUNCHES.items()}
+    rank_want = {**want, "adamw": 0}      # ZeRO's ranks keep the per-tensor loop
     out = {"phase": "ddp_gloo", "ranks": DDP_RANKS, "backend": "gloo",
            "devices": [TRAIN_DEVICE] * DDP_RANKS,
            "config": f"get_config(48000, **{TRAIN_CFG}), random init from seed {SEED}",
@@ -2893,7 +3124,7 @@ def phase_ddp_gloo(work: str) -> dict:
     emit(out)
     ok = (identical and all(r < DDP_LOSS_BAR for x in loss_rel for r in x.values())
           and all(v < DDP_PARAM_BAR for p in params for v in p.values())
-          and all(r["launches"] == want for r in ranks) and single_launches == want)
+          and all(r["launches"] == rank_want for r in ranks) and single_launches == want)
     if not ok:
         raise AssertionError(f"two gloo ranks against the single card: losses {loss_rel}, "
                              f"params {params}, identical {identical}, launches "
@@ -2912,7 +3143,7 @@ TP_RANKS, TP_STEPS = 2, 3          # mesh (1, 2): one model group, both ranks on
 # and the C = 128 stage's k = 7 / 11 on the partial-sum launch, K1 elsewhere
 TP_LAUNCHES = {"resblock_group": 3, "resblock_chain": 0, "rel_attention": 6, "log_mel": 0,
                "resblock_group_tp": 6, "resblock_chain_tp": 9,
-               "resblock_group_packed": 0}
+               "resblock_group_packed": 0, "adamw": 0}
 TP_KERNELS = {
     "resblock_group_tp": dict(
         name="K1 resblock_group_tp", entry="rvc_resblock_step_partial",
@@ -3546,7 +3777,7 @@ def frontends_trace(work: str, card: str) -> tuple:
           "launches": launches, "xprof_s": traced_s, "cuda_kernels": names,
           "k1_k4_symbols": found})
     want = {"host/highpass", "dispatch/fused_convert", "host/pad+upload", "dispatch/f0_program",
-            "dispatch/conv_program", "fetch/materialize", "host/post"}
+            "dispatch/conv_program", "fetch/materialize", "host/post", "rmvpe/bigru"}
     missing = {k: sorted(set(TRACE_SYMBOLS[k]) - set(v)) for k, v in found.items()
                if set(v) != set(TRACE_SYMBOLS[k])}
     if set(spans) != want or missing:
@@ -3753,6 +3984,7 @@ def main() -> int:
     longform_launches = phase_longform(rvc)
     mesh_launches = phase_longform_mesh(rvc)
     del rvc
+    adamw_summary = phase_adamw()
     with kept, tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as work:
         train_launches = phase_train(work)
         ddp_launches, single = phase_ddp_gloo(work)
@@ -3762,28 +3994,19 @@ def main() -> int:
         phase_tp_nccl(work)
         phase_tools(work)
         frontend_launches, packed_summary = phase_frontends(work, index_path)
-    for entry, name in zip(summary, KERNELS):
+    by_path = {"pipeline": launches, "retrieval": retrieval_launches,
+               "f0less": f0less_launches, **pitch_launches, "postfx": postfx_launches,
+               **vocoder_launches, "longform": longform_launches, **realtime_launches,
+               **train_launches, **mesh_launches, **ddp_launches, **tp_launches,
+               **nccl_launches, **frontend_launches, **bf16_launches}
+    for entry, name in [*zip(summary, KERNELS), (adamw_summary, "adamw")]:
         if name in ("resblock_group", "resblock_chain"):
             entry["wgmma"] = {"source": wgmma["source"], "counts": {
                 k: v for k, v in wgmma["counts"].items() if k.startswith("chains_kernel")}}
-        entry["launches_by_path"] = {"pipeline": launches[name],
-                                     "retrieval": retrieval_launches[name],
-                                     "f0less": f0less_launches[name],
-                                     **{k: v[name] for k, v in pitch_launches.items()},
-                                     "postfx": postfx_launches[name],
-                                     **{k: v[name] for k, v in vocoder_launches.items()},
-                                     "longform": longform_launches[name],
-                                     **{k: v[name] for k, v in realtime_launches.items()},
-                                     **{k: v[name] for k, v in train_launches.items()},
-                                     **{k: v[name] for k, v in mesh_launches.items()},
-                                     **{k: v[name] for k, v in ddp_launches.items()},
-                                     **{k: v[name] for k, v in tp_launches.items()},
-                                     **{k: v[name] for k, v in nccl_launches.items()},
-                                     **{k: v[name] for k, v in frontend_launches.items()},
-                                     **{k: v[name] for k, v in bf16_launches.items()}}
+        entry["launches_by_path"] = {k: v[name] for k, v in by_path.items()}
     # one counter for both entries: the float32 line's own run is the float32 one
     k3_f32["launches_by_path"] = {"f32_main": bf16_launches["f32_main"]["rel_attention"]}
-    summary += [k3_f32] + tp_summary + [packed_summary]
+    summary += [k3_f32] + tp_summary + [packed_summary, adamw_summary]
 
     emit({"kernels": summary})
     print(card, flush=True)

@@ -8,10 +8,13 @@
 | K1 TP  | resblock.resblock_group_tp          | csrc/resblock.cu     | K1's partial-sum launch on a tensor-parallel rank       |
 | K2 TP  | resblock.resblock_chain_tp          | csrc/resblock.cu     | K2's partial-sum launch on a tensor-parallel rank       |
 | K1 pk  | resblock.resblock_group_packed      | csrc/resblock.cu     | rvc_tpu/ops/pallas/resblock.py : resblock_group_packed  |
+| AdamW  | adamw.adamw                         | csrc/adamw.cu        | none: the optax chain XLA fuses in the jitted train step |
 
 Each wrapper `<name>` has a plain PyTorch version `<name>_reference` with
 the same signature, which it runs for CPU tensors (the `_tp` wrappers:
 `resblock_chain_partial_reference`, `resblock_group_partial_reference`).
+`adamw` updates an optimizer's tensors in place and is not recorded by
+`record_calls`.
 
 `LAUNCHES` counts each wrapper's kernel launches (and nothing else), so a
 run can show that the main path went through the kernels; `count_launch`
@@ -47,7 +50,7 @@ import torch
 
 LAUNCHES = {"resblock_group": 0, "resblock_chain": 0, "rel_attention": 0,
             "log_mel": 0, "resblock_group_tp": 0, "resblock_chain_tp": 0,
-            "resblock_group_packed": 0}
+            "resblock_group_packed": 0, "adamw": 0}
 CONVERSIONS = {"stage": 0, "step": 0}
 
 _recording: Optional[List[tuple]] = None

@@ -50,11 +50,13 @@ import torch
 import torch.distributed as dist
 
 from rvc_tpu_torch.ops.commons import batch_rows
+from rvc_tpu_torch.ops.kernels import adamw as K
 from rvc_tpu_torch.parallel import tp
 from rvc_tpu_torch.parallel.distributed import initialize
 from rvc_tpu_torch.parallel.mesh import MIN_SIZE, Axis, zero1_dim
-from rvc_tpu_torch.train.optim import AdamW, global_norm
+from rvc_tpu_torch.train.optim import AdamW
 from rvc_tpu_torch.train.train_step import TrainStep
+from rvc_tpu_torch.utils.profiling import trace_span
 
 BUCKET_BYTES = 1 << 26      # 64 MiB a collective
 _G_LOSSES = ("loss_g_total", "loss_mel", "loss_kl", "loss_adv", "loss_fm")
@@ -176,9 +178,26 @@ class ShardedAdamW(AdamW):
                 for j, i in enumerate(self.sharded):
                     self._slice(i, self.params[i], r).copy_(parts[r][j])
 
+    @torch.no_grad()
+    def step(self, grads: Sequence[torch.Tensor],
+             gate: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """`AdamW.step` on this rank's slices, one tensor at a time (the
+        slices may not be contiguous, the norm may take a collective):
+        sanitize, `norm`, `adamw_update` over `_local`'s slices, `_share`.
+        Returns the norm."""
+        with trace_span("optim/adamw"):
+            grads = K.sanitize_grads(grads)
+            g_norm = self.norm(grads)
+            K.adamw_update([self._local(i, p) for i, p in enumerate(self.params)],
+                           [self._local(i, g) for i, g in enumerate(grads)],
+                           self.mu, self.nu, self.count, self.hyper, g_norm, gate)
+            self._share()
+            return g_norm
+
     def norm(self, grads: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The global norm of the whole model's gradient from this rank's."""
         if self.model.size == 1:
-            return global_norm(grads)
+            return K.global_norm(grads)
         whole = torch.zeros((), device=grads[0].device)
         shards = torch.zeros(1, device=grads[0].device)
         for g, d in zip(grads, self.tp_dims):
@@ -207,7 +226,7 @@ class ShardedAdamW(AdamW):
     def state_dict(self) -> Dict[str, object]:
         return {"mu": [t.detach().cpu() for t in self._whole(self.mu)],
                 "nu": [t.detach().cpu() for t in self._whole(self.nu)],
-                "count": self.count.cpu()}
+                "count": self.count.cpu().clone()}
 
     def _own(self, i: int, t: torch.Tensor) -> torch.Tensor:
         """This rank's part of parameter i's whole moment t."""

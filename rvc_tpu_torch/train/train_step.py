@@ -4,12 +4,13 @@ Per batch, as the reference's `make_train_step`: the generator's training
 forward (prior, posterior, flow, a random segment, the decoder), mel L1
 x c_mel (RefineGAN: the multi-scale mel x c_mel / 3) + KL x c_kl +
 LS-GAN adversarial + feature matching (no adversarial terms in warmup);
-the gradients sanitized (nan/inf -> 0 / +-1e3), `freeze_encoder` zeroing
-enc_p's, the generator's `AdamW`; then `d_step_per_g_step` discriminator
-updates on the detached segment, each skipped whole while its loss is
-under `d_loss_threshold` (decided on the device). The reference runs it
-as one jitted program; here it runs eagerly, with K1-K3 under autograd
-(`ops/kernels`) and no read-back to the host inside the step.
+`freeze_encoder` zeroing enc_p's gradients, the generator's `AdamW` (which
+sanitizes them, nan/inf -> 0 / +-1e3, and gives `grad_norm_g`); then
+`d_step_per_g_step` discriminator updates on the detached segment, each
+skipped whole while its loss is under `d_loss_threshold` (decided on the
+device). The reference runs it as one jitted program; here it runs
+eagerly, with K1-K3 under autograd (`ops/kernels`) and no read-back to the
+host inside the step.
 
 With RVC_TPU_TRACE=1 a step is the span train/step (its request id the
 step's number) over train/g_forward, train/g_backward, G's optim/adamw and
@@ -27,7 +28,7 @@ from rvc_tpu_torch.configs import RVCConfig
 from rvc_tpu_torch.ops.commons import slice_segments
 from rvc_tpu_torch.ops.stft import mel_spectrogram
 from rvc_tpu_torch.train import losses as L
-from rvc_tpu_torch.train.optim import AdamW, sanitize_grads
+from rvc_tpu_torch.train.optim import AdamW
 from rvc_tpu_torch.utils.profiling import trace_span
 
 METRICS = ("loss_g_total", "loss_d", "loss_mel", "loss_kl", "loss_adv", "loss_fm",
@@ -136,12 +137,13 @@ class TrainStep:
         return L.discriminator_loss(y_d_rs, y_d_gs)
 
     def g_grads(self, total: torch.Tensor) -> List[torch.Tensor]:
-        """G's sanitized gradients of `total`, enc_p's zeroed under
-        freeze_encoder (zeros for a parameter the loss does not reach)."""
+        """G's gradients of `total`, enc_p's zeroed under freeze_encoder
+        (zeros for a parameter the loss does not reach); the optimizer
+        sanitizes them (a zero stays zero)."""
         params = self.g_opt.params
         grads = torch.autograd.grad(total, params, allow_unused=True)
-        grads = sanitize_grads(self.reduce_grads([torch.zeros_like(p) if g is None else g
-                                                  for g, p in zip(grads, params)], params))
+        grads = self.reduce_grads([torch.zeros_like(p) if g is None else g
+                                   for g, p in zip(grads, params)], params)
         if self.enc_p is not None:
             grads = [torch.zeros_like(g) if frozen else g
                      for g, frozen in zip(grads, self.enc_p)]
@@ -152,8 +154,7 @@ class TrainStep:
         with trace_span("train/d_update"):
             params = self.d_opt.params
             loss = self.d_loss(wave_real, y_hat)
-            grads = sanitize_grads(self.reduce_grads(list(torch.autograd.grad(loss, params)),
-                                                     params))
+            grads = self.reduce_grads(list(torch.autograd.grad(loss, params)), params)
             loss = self.reduce_loss(loss.detach())
             threshold = self.cfg.train.d_loss_threshold
             self.d_opt.step(grads, gate=loss >= threshold if threshold > 0 else None)
@@ -171,10 +172,10 @@ class TrainStep:
                     grads = self.g_grads(total)
             finally:
                 self.net_d.requires_grad_(True)
-            self.g_opt.step(grads)
+            grad_norm_g = self.g_opt.step(grads)
             y_hat, wave_real = y_hat.detach(), wave_real.detach()
             for _ in range(max(self.cfg.train.d_step_per_g_step, 1)):
                 loss_d = self.d_update(wave_real, y_hat)
             return dict(loss_g_total=total.detach(), loss_d=loss_d,
                         **{k: v.detach() for k, v in losses.items()},
-                        grad_norm_g=self.g_opt.norm(grads))
+                        grad_norm_g=grad_norm_g)

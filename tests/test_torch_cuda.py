@@ -682,7 +682,8 @@ def test_rel_attention_gradients_ragged(dev):
 
 def _step_losses_and_grads(cfg, net_g, net_d, batch, draws):
     """One adversarial step's losses and its G (per module) and D gradients,
-    without the update."""
+    without the update (G's sanitized, as its optimizer sanitizes them)."""
+    from rvc_tpu_torch.ops.kernels.adamw import sanitize_grads
     from rvc_tpu_torch.train.train_step import TrainStep, make_optimizers
 
     g_opt, d_opt = make_optimizers(cfg, net_g, net_d)
@@ -690,7 +691,7 @@ def _step_losses_and_grads(cfg, net_g, net_d, batch, draws):
     total, losses, y_hat, real = step.g_losses(batch, **draws)
     names = [n for n, _ in net_g.named_parameters()]
     by_module = {}
-    for n, gr in zip(names, step.g_grads(total)):
+    for n, gr in zip(names, sanitize_grads(step.g_grads(total))):
         by_module.setdefault(n.split(".")[0], []).append(gr.flatten())
     d_loss = step.d_loss(real.detach(), y_hat.detach())
     by_module["D"] = [gr.flatten() for gr in torch.autograd.grad(d_loss, d_opt.params)]
