@@ -12,6 +12,14 @@ Noise (the harmonics' initial phases, the source noise, AdaIN's noise) is
 drawn from an explicit `torch.Generator`, in a fixed order; with none it is
 zero, as the reference's `rng=None`. Torch cannot draw the reference's JAX
 random bits, so outputs with noise agree with it only in their statistics.
+RefineGAN's order: the sine template's initial phases (B, 1) and noise
+(B, T*upp, 1), then for each stage and each branch AdaIN before and AdaIN
+after, each at its input's (B, T, C).
+
+With RVC_TPU_TRACE=1 RefineGAN opens the spans decoder/source (the sine
+template, its merge, `pre_conv` and the decimation path) and decoder/stage
+around each upsampling stage (`refine_stage`: the linear resize and the
+ParallelResBlock, a module function so that a caller can wrap it).
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ from torch.nn import functional as F
 
 from rvc_tpu_torch.models.layers import Conv1d, ConvTranspose1d, init_normal, leaky_relu
 from rvc_tpu_torch.ops.commons import draw
+from rvc_tpu_torch.utils.profiling import trace_span
 
 
 def audio_rate_sines(f0: torch.Tensor, sample_rate: int, harmonic_num: int = 0,
@@ -302,21 +311,30 @@ class RefineGANGenerator(nn.Module):
 
     def forward(self, mel: torch.Tensor, f0: torch.Tensor, g: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        T = mel.shape[1]
-        f0_up = linear_resize(f0[:, :, None].float(), T * self.upp)
-        sines = audio_rate_sines(f0_up, self.sample_rate, 0, generator=generator)
-        x = self.pre_conv(torch.tanh(self.m_source.merge(sines)))
-        downs = []
-        for i, block in enumerate(self.downsample_blocks):
-            x = leaky_relu(x, self.slope)
-            downs.append(x)
-            x = block(kaiser_sinc_decimate(x, self.rates[-i - 1]))
+        with trace_span("decoder/source"):
+            f0_up = linear_resize(f0[:, :, None].float(), mel.shape[1] * self.upp)
+            sines = audio_rate_sines(f0_up, self.sample_rate, 0, generator=generator)
+            x = self.pre_conv(torch.tanh(self.m_source.merge(sines)))
+            downs = []
+            for i, block in enumerate(self.downsample_blocks):
+                x = leaky_relu(x, self.slope)
+                downs.append(x)
+                x = block(kaiser_sinc_decimate(x, self.rates[-i - 1]))
         m = self.mel_conv(mel)
         if g is not None:
             m = m + self.cond(g)
         x = torch.cat([m, x], dim=-1)
         for rate, block, d in zip(self.rates, self.upsample_conv_blocks, reversed(downs)):
-            x = linear_resize(leaky_relu(x, self.slope), x.shape[1] * rate)
-            n = min(d.shape[1], x.shape[1])
-            x = block(torch.cat([x[:, :n], d[:, :n]], dim=-1), generator)
+            with trace_span("decoder/stage"):
+                x = refine_stage(x, d, rate, block, self.slope, generator)
         return torch.tanh(self.conv_post(leaky_relu(x, self.slope)))
+
+
+def refine_stage(x: torch.Tensor, skip: torch.Tensor, rate: int, block: ParallelResBlock,
+                 slope: float, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """One RefineGAN upsampling stage: x (B, T, C) through LReLU, linearly
+    resized to T * rate, cut to the skip tap's length and joined with it
+    (B, T * rate, C + C / 4), then the ParallelResBlock -> (B, T * rate, C / 2)."""
+    x = linear_resize(leaky_relu(x, slope), x.shape[1] * rate)
+    n = min(skip.shape[1], x.shape[1])
+    return block(torch.cat([x[:, :n], skip[:, :n]], dim=-1), generator)

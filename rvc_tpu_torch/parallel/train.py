@@ -32,6 +32,9 @@ does not take) of its shard of every large parameter, updates that slice
 and all-gathers the slices over its data group. Ranks of a data group start
 equal (`broadcast_modules` from its first rank) and stay equal bit for bit.
 
+With RVC_TPU_TRACE=1 the collectives of `all_reduce_mean` and
+`all_gather_coalesced` are the spans dp/all_reduce and dp/all_gather.
+
 `spawn` starts one process a rank (the `spawn` start method: CUDA cannot
 live in a forked child), joins them at a fresh localhost port and runs a
 function of this module in each: `cli_train` (`train` on a machine with
@@ -95,12 +98,13 @@ def all_reduce_mean(tensors: Sequence[torch.Tensor], axis: Optional[Axis] = None
     out = list(tensors)
     if axis.size == 1:
         return out
-    for idx in _buckets(out):
-        flat = _flat(out, idx)
-        dist.all_reduce(flat, group=axis.group)
-        flat /= axis.size
-        for i, piece in zip(idx, flat.split([out[i].numel() for i in idx])):
-            out[i] = piece.view_as(out[i])
+    with trace_span("dp/all_reduce"):
+        for idx in _buckets(out):
+            flat = _flat(out, idx)
+            dist.all_reduce(flat, group=axis.group)
+            flat /= axis.size
+            for i, piece in zip(idx, flat.split([out[i].numel() for i in idx])):
+                out[i] = piece.view_as(out[i])
     return out
 
 
@@ -112,13 +116,14 @@ def all_gather_coalesced(slices: Sequence[torch.Tensor], axis: Optional[Axis] = 
     if axis.size == 1:
         return [list(slices)]
     out = [[None] * len(slices) for _ in range(axis.size)]
-    for idx in _buckets(slices):
-        flat = _flat(slices, idx)
-        parts = [torch.empty_like(flat) for _ in range(axis.size)]
-        dist.all_gather(parts, flat, group=axis.group)
-        for r, part in enumerate(parts):
-            for i, piece in zip(idx, part.split([slices[i].numel() for i in idx])):
-                out[r][i] = piece.view(slices[i].shape)
+    with trace_span("dp/all_gather"):
+        for idx in _buckets(slices):
+            flat = _flat(slices, idx)
+            parts = [torch.empty_like(flat) for _ in range(axis.size)]
+            dist.all_gather(parts, flat, group=axis.group)
+            for r, part in enumerate(parts):
+                for i, piece in zip(idx, part.split([slices[i].numel() for i in idx])):
+                    out[r][i] = piece.view(slices[i].shape)
     return out
 
 

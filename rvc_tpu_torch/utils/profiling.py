@@ -10,7 +10,10 @@ program opens named spans where its work happens (`trace_span`):
   pool/dispatch, pool/readback, pool/resample_out, pool/sola;
 - the training step: train/step, and inside it train/g_forward,
   train/g_backward, optim/adamw (G's update) and train/d_update (with D's
-  optim/adamw);
+  optim/adamw); on several ranks dp/all_reduce and dp/all_gather around
+  the data axis's collectives (`parallel.train`);
+- RefineGAN's decoder: decoder/source, and decoder/stage around each
+  upsampling stage;
 - rmvpe/bigru around RMVPE's recurrence, kernels/convert_weights around a
   K1/K2 weight conversion (a miss of `ops.kernels.resblock.cached`).
 

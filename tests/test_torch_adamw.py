@@ -122,7 +122,9 @@ def test_step_on_raw_grads_matches_sanitize_then_optax(use_bf16, gate):
     update = jax.jit(g_tx.update)
     keys = [f"p{i}" for i in range(len(SHAPES))]
     port = fresh()
-    jp = {k: jnp.asarray(p.numpy()) for k, p in zip(keys, port)}
+    # a copy: `jnp.asarray` of a host array may share its memory, and the port
+    # updates `port` in place while JAX's asynchronous update may still read it
+    jp = {k: jnp.array(p.numpy()) for k, p in zip(keys, port)}
     st = g_tx.init(jp)
     opt = AdamW(port, jcfg.train.learning_rate, SPE, 0.5, *jcfg.train.betas, jcfg.train.eps,
                 mu_dtype=torch.bfloat16 if use_bf16 else None)
