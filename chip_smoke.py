@@ -147,7 +147,12 @@ Phases, one JSON line each (a `kernel` line per kernel call):
             with its own norm; the count; a False gate changes nothing. Then
             a `kernel` line per network and moment type: ms, held_stream_ms
             (its device time: CUDA events around the call on a stream held
-            while the host queues it), plain_ms and the bytes bound
+            while the host queues it), plain_ms and the bytes bound. The
+            same checks on ZeRO-1's layouts of G and D (`ShardedAdamW`'s
+            slices for each data index of 4, dim-0 and strided dim-1 ones;
+            gate None or False, both moment types; one case with the norm
+            given) and a `kernel` line of data index 0's bf16 call (bound: 4
+            B a parameter for the norm, 24 B an updated element)
   train     a voice model made as users make one, at the 48 kHz model's full
             width (random init from seed 0): 2 speakers x 3 seeded harmonic
             utterances of 10 s through the port's AudioPreprocessor
@@ -2390,6 +2395,8 @@ ADAMW_SLEEP_CYCLES = 50_000_000     # ~25 ms of a held stream: the host queues a
 ADAMW_FLOP = 20       # per parameter and step: the squares, the clip, the moments, the update
 ADAMW_SPE = 5         # steps_per_epoch: the second of a case's two steps decays the rate
 ADAMW_CASES = ((None, True), (None, False), (False, True))   # (gate, norm over 1)
+ADAMW_ZERO_RANKS = 4  # ZeRO-1's slices of each data index of a four-card data axis
+ADAMW_ZERO_CASES = ((None, True), (False, True))
 
 
 def adamw_grads(shapes, seed: int, over: bool) -> list:
@@ -2423,27 +2430,37 @@ def worst_rel_l2(got, ref) -> float:
     return worst
 
 
-def adamw_case(opt, mu_dtype, gate, over: bool, seed: int) -> tuple:
+def adamw_case(opt, mu_dtype, gate, over: bool, seed: int, given: bool = False) -> tuple:
     """Two steps of `ops.kernels.adamw` from copies of `opt`'s parameters,
-    moments of a run under way and the count one step before an epoch
-    ends, each step from the same state as the plain version run on the
-    card: `adamw_reference` (its own sanitizing and norm, ADAMW_REF_BAR)
-    and the plain loop `adamw_update` given the kernel's norm (ADAMW_BAR).
-    Returns the worst distances and their bars, then the kernel's layout,
-    the last step's gradients, the count and the constants."""
+    moments (of the views `opt._local` cuts: ZeRO-1's slices for a
+    `ShardedAdamW`) of a run under way and the count one step before an
+    epoch ends, each step from the same state as the plain version run on
+    the card: `adamw_reference` on a layout of copies (its own sanitizing
+    and norm, ADAMW_REF_BAR) and the plain loop `adamw_update` over the
+    views given the kernel's norm (ADAMW_BAR); the parameters compared
+    whole, so an element outside a view that moves shows too. With `given`
+    the kernel and `adamw_reference` take the plain global norm of the
+    sanitized gradients (tensor parallelism's path), which the kernel
+    returns bit for bit. Returns the worst distances and their bars, then
+    the kernel's layout, the last step's gradients, the count and the
+    constants."""
     import torch
 
     from rvc_tpu_torch.ops.kernels import LAUNCHES
     from rvc_tpu_torch.ops.kernels import adamw as K
 
+    def views(ts):
+        return [opt._local(i, t) for i, t in enumerate(ts)]
+
     gen = torch.Generator(device="cuda").manual_seed(seed)
     params = [p.detach().clone() for p in opt.params]
-    mu = [(1e-3 * torch.randn(p.shape, device="cuda", generator=gen)).to(mu_dtype)
-          for p in params]
-    nu = [(1e-3 * torch.randn(p.shape, device="cuda", generator=gen)) ** 2 for p in params]
+    mu = [(1e-3 * torch.randn(v.shape, device="cuda", generator=gen)).to(mu_dtype)
+          for v in views(params)]
+    nu = [(1e-3 * torch.randn(v.shape, device="cuda", generator=gen)) ** 2
+          for v in views(params)]
     count = torch.tensor(ADAMW_SPE - 1, dtype=torch.int32, device="cuda")
     h = opt.hyper._replace(b1_mu=torch.tensor(opt.hyper.b1, dtype=mu_dtype).item())
-    layout, n = K.Layout(params, mu, nu), len(params)
+    layout, n = K.Layout(params, mu, nu, views(params)), len(params)
     flag = None if gate is None else torch.tensor(gate, device="cuda")
     out = dict(norm_vs_reference=0.0, norm_vs_float64=0.0, launches=0)
     shapes = [tuple(p.shape) for p in params]
@@ -2454,18 +2471,22 @@ def adamw_case(opt, mu_dtype, gate, over: bool, seed: int) -> tuple:
     for k in range(2):
         grads = adamw_grads(shapes, seed + 1 + k, over)
         before, ref, plain = state(), state(), state()
-        launches = LAUNCHES["adamw"]
-        norm = K.adamw(layout, grads, count, h, flag)
-        ref_norm = K.adamw_reference(K.Layout(ref[:n], ref[n:2 * n], ref[2 * n:3 * n]), grads,
-                                     ref[-1], h, flag)
         clean = K.sanitize_grads(grads)
         exact = torch.sqrt(sum(torch.sum(g.double() ** 2) for g in clean))
-        K.adamw_update(plain[:n], clean, plain[n:2 * n], plain[2 * n:3 * n], plain[-1], h, norm,
-                       flag)
+        norm_in = K.global_norm(clean) if given else None
+        launches = LAUNCHES["adamw"]
+        norm = K.adamw(layout, grads, count, h, flag, norm_in)
+        ref_norm = K.adamw_reference(
+            K.Layout(ref[:n], ref[n:2 * n], ref[2 * n:3 * n], views(ref[:n])), grads, ref[-1], h,
+            flag, norm_in)
+        K.adamw_update(views(plain[:n]), views(clean), plain[n:2 * n], plain[2 * n:3 * n],
+                       plain[-1], h, norm, flag)
         del clean
         out["launches"] += LAUNCHES["adamw"] - launches      # the plain versions launch none
         got = params + mu + nu + [count]
         out["norm"] = float(norm)
+        if given:
+            out["norm_given"] = out.get("norm_given", True) and torch.equal(norm, norm_in)
         out["norm_vs_reference"] = max(out["norm_vs_reference"],
                                        worst_rel_l2([norm], [ref_norm]))
         out["norm_vs_float64"] = max(out["norm_vs_float64"], worst_rel_l2([norm], [exact]))
@@ -2493,7 +2514,8 @@ def adamw_case(opt, mu_dtype, gate, over: bool, seed: int) -> tuple:
             bars[k] = ADAMW_REF_BAR[name + ("_bf16" if bf16 else "")]
     out["ok"] = (all(out[k] <= b for k, b in bars.items()) and out["count"] == [want] * 3
                  and out["launches"] == 2 and out.get("unchanged", True)
-                 and out.get("reference_unchanged", True) and (out["norm"] > 1.0) == over)
+                 and out.get("reference_unchanged", True) and out.get("norm_given", True)
+                 and (out["norm"] > 1.0) == over)
     out["bars"] = bars
     return out, layout, grads, count, h
 
@@ -2518,6 +2540,44 @@ def held_stream_ms(fn, reps: int = 5) -> float:
     return times[len(times) // 2]
 
 
+def adamw_line(net: str, opt, mu_dtype, cases: dict, timed: tuple) -> dict:
+    """The `kernel` line of one optimizer's call (`timed`: a case's layout,
+    gradients, count and constants): ms (CUDA events around one call, the
+    host's work included), `held_stream_ms` (the call's device time by CUDA
+    events; torch.profiler read these kernels at under half their bytes
+    bound this late in the smoke), plain ms (`adamw_reference` on the
+    card), the bytes bound: 4 B a parameter for the norm, then 20 B and
+    two first moments an updated element (28 B with bf16, 32 with float32
+    where every element is updated)."""
+    import torch
+
+    from rvc_tpu_torch.ops.kernels import adamw as K
+
+    layout, grads, count, h = timed
+    params, mu, nu = [[t.clone() for t in ts] for ts in (layout.params, layout.mu, layout.nu)]
+    ref = K.Layout(params, mu, nu, [opt._local(i, t) for i, t in enumerate(params)])
+    ref_count = count.clone()
+    nparam = sum(p.numel() for p in layout.params)
+    updated = sum(v.numel() for v in layout.local)
+    nbytes = 4 * nparam + (20 + 2 * layout.mu[0].element_size()) * updated
+    sharded = getattr(opt, "data", None)
+    where = "" if sharded is None else f", ZeRO-1 data index {sharded.index} of {sharded.size}"
+    line = {"phase": "kernel", "name": f"{ADAMW['name']} ({net}, "
+            f"{str(mu_dtype).replace('torch.', '')} first moment{where})",
+            "inputs": {"tensors": len(layout), "params": nparam, "updated": updated,
+                       "strided": sum(r.rows > 1 for r in layout.rows),
+                       "chunks": layout.n_chunks, "update_chunks": layout.n_update_chunks,
+                       "chunk": K.CHUNK},
+            "cases": cases,
+            "ms": cuda_ms(lambda: K.adamw(layout, grads, count, h)),
+            "held_stream_ms": held_stream_ms(lambda: K.adamw(layout, grads, count, h)),
+            "plain_ms": cuda_ms(lambda: K.adamw_reference(ref, grads, ref_count, h))}
+    line["bound_ms"], line["bound_by"] = bound(ADAMW_FLOP * nparam, nbytes, ADAMW["peak"])
+    emit({**line, "bound": bound_text(ADAMW["peak"])})
+    line["flop"], line["bytes"] = ADAMW_FLOP * nparam, nbytes
+    return line
+
+
 def phase_adamw() -> dict:
     """`ops.kernels.adamw` on the 48 kHz model's G and D at full width
     (random init from seed 0, their optimizers' constants from
@@ -2525,65 +2585,66 @@ def phase_adamw() -> dict:
     and float32 first moments, the ADAMW_CASES (gate None or False, the
     norm over or under 1) held by `adamw_case` at ADAMW_BAR (a False gate:
     nothing changes, bit for bit; the count advances only where the gate
-    allows; one launch counted a call); then one call timed: ms (CUDA events
-    around one call, the host's work included), `held_stream_ms` (the
-    call's device time by CUDA events; torch.profiler read these kernels
-    at under half their bytes bound this late in the smoke), plain ms
-    (`adamw_reference` on the card), the bound (28 B a parameter with a
-    bf16 first moment, 32 with float32, at 3.35 TB/s). Returns the kernels
-    line's entry: G's and D's bf16 calls, one training step."""
+    allows; one launch counted a call), and a `kernel` line (`adamw_line`).
+    Then ZeRO-1's layouts of the same tensors (`parallel.train.ShardedAdamW`
+    for each data index of ADAMW_ZERO_RANKS: slices along dim 0 and strided
+    ones along dim 1, moments of the slices' size, the norm over the whole
+    gradients), the ADAMW_ZERO_CASES for both moment types, one more case
+    with the norm given, and a `kernel` line of data index 0's bf16 call.
+    Returns the kernels line's entry: G's and D's one-card bf16 calls, one
+    training step."""
     import torch
 
     from rvc_tpu_torch.configs import get_config
     from rvc_tpu_torch.models.discriminators import build_discriminator
     from rvc_tpu_torch.models.synthesizer import build_synthesizer
-    from rvc_tpu_torch.ops.kernels import adamw as K
+    from rvc_tpu_torch.parallel.mesh import Axis
+    from rvc_tpu_torch.parallel.train import ShardedAdamW
     from rvc_tpu_torch.train.train_step import make_optimizers
 
     cfg = get_config(48000)
     torch.manual_seed(SEED)
     with torch.device("cuda"):
         net_g, net_d = build_synthesizer(cfg, training=True), build_discriminator(cfg)
-    opts = dict(zip("GD", make_optimizers(cfg, net_g, net_d, steps_per_epoch=ADAMW_SPE)))
+    opts = {("one card", net): opt for net, opt in
+            zip("GD", make_optimizers(cfg, net_g, net_d, steps_per_epoch=ADAMW_SPE))}
+    for k in range(ADAMW_ZERO_RANKS):
+        zero = functools.partial(ShardedAdamW, data=Axis(ADAMW_ZERO_RANKS, k), model=Axis())
+        opts.update({(f"data index {k}", net): opt for net, opt in
+                     zip("GD", make_optimizers(cfg, net_g, net_d, steps_per_epoch=ADAMW_SPE,
+                                               optimizer=zero))})
     del net_g, net_d
     total = dict(calls=0, flop=0, bytes=0, ms=0.0, plain_ms=0.0, held_stream_ms=0.0)
     failed = []
-    for net, opt in opts.items():
+    for (where, net), opt in opts.items():
+        one_card = where == "one card"
         for mu_dtype in (torch.bfloat16, torch.float32):
             cases = {}
-            for i, (gate, over) in enumerate(ADAMW_CASES):
+            runs = [(gate, over, False) for gate, over in
+                    (ADAMW_CASES if one_card else ADAMW_ZERO_CASES)]
+            if where == "data index 1" and mu_dtype == torch.bfloat16:
+                runs.append((None, True, True))
+            for i, (gate, over, given) in enumerate(runs):
                 res, layout, grads, count, h = adamw_case(opt, mu_dtype, gate, over,
-                                                           SEED + 10 * i)
-                cases[f"gate={gate} norm_{'over' if over else 'under'}_1"] = res
+                                                           SEED + 10 * i, given)
+                cases[f"gate={gate} norm_{'over' if over else 'under'}_1"
+                      + (" given" if given else "")] = res
                 if not res["ok"]:
-                    failed.append((net, str(mu_dtype), gate, over))
-                if gate is None and over:
+                    failed.append((where, net, str(mu_dtype), gate, over, given))
+                if gate is None and over and not given:
                     timed = (layout, grads, count, h)
                 del layout, grads, count
-            layout, grads, count, h = timed
-            ref = K.Layout(*[[t.clone() for t in ts] for ts in (layout.params, layout.mu,
-                                                                 layout.nu)])
-            ref_count = count.clone()
-            nparam = sum(layout.numels)
-            nbytes = nparam * (24 + 2 * layout.mu[0].element_size())
-            line = {"phase": "kernel", "name": f"{ADAMW['name']} ({net}, "
-                    f"{str(mu_dtype).replace('torch.', '')} first moment)",
-                    "inputs": {"tensors": len(layout), "params": nparam,
-                               "chunks": layout.n_chunks, "chunk": K.CHUNK},
-                    "cases": cases,
-                    "ms": cuda_ms(lambda: K.adamw(layout, grads, count, h)),
-                    "held_stream_ms": held_stream_ms(lambda: K.adamw(layout, grads, count, h)),
-                    "plain_ms": cuda_ms(lambda: K.adamw_reference(ref, grads, ref_count, h))}
-            line["bound_ms"], line["bound_by"] = bound(ADAMW_FLOP * nparam, nbytes,
-                                                       ADAMW["peak"])
-            emit({**line, "bound": bound_text(ADAMW["peak"])})
-            if mu_dtype == torch.bfloat16:
+            if not one_card and (where != "data index 0" or mu_dtype != torch.bfloat16):
+                emit({"phase": "adamw", "net": net, "where": where,
+                      "first_moment": str(mu_dtype).replace("torch.", ""), "cases": cases})
+                del timed
+                continue
+            line = adamw_line(net, opt, mu_dtype, cases, timed)
+            if one_card and mu_dtype == torch.bfloat16:
                 total["calls"] += 1
-                total["flop"] += ADAMW_FLOP * nparam
-                total["bytes"] += nbytes
-                for k in ("ms", "plain_ms", "held_stream_ms"):
+                for k in ("flop", "bytes", "ms", "plain_ms", "held_stream_ms"):
                     total[k] += line[k]
-            del layout, grads, count, ref, ref_count, timed
+            del timed
     if failed:
         raise AssertionError(f"adamw: the kernel missed its plain version in {failed}")
     bound_ms, bound_by = bound(total["flop"], total["bytes"], ADAMW["peak"])
@@ -3105,7 +3166,6 @@ def phase_ddp_gloo(work: str) -> dict:
     identical = all(torch.equal(ranks[0][n][k], r[n][k]) for r in ranks[1:]
                     for n in ("g", "d") for k in ranks[0][n])
     want = {k: n * DDP_STEPS for k, n in TRAIN_LAUNCHES.items()}
-    rank_want = {**want, "adamw": 0}      # ZeRO's ranks keep the per-tensor loop
     out = {"phase": "ddp_gloo", "ranks": DDP_RANKS, "backend": "gloo",
            "devices": [TRAIN_DEVICE] * DDP_RANKS,
            "config": f"get_config(48000, **{TRAIN_CFG}), random init from seed {SEED}",
@@ -3124,7 +3184,7 @@ def phase_ddp_gloo(work: str) -> dict:
     emit(out)
     ok = (identical and all(r < DDP_LOSS_BAR for x in loss_rel for r in x.values())
           and all(v < DDP_PARAM_BAR for p in params for v in p.values())
-          and all(r["launches"] == rank_want for r in ranks) and single_launches == want)
+          and all(r["launches"] == want for r in ranks) and single_launches == want)
     if not ok:
         raise AssertionError(f"two gloo ranks against the single card: losses {loss_rel}, "
                              f"params {params}, identical {identical}, launches "
@@ -3143,7 +3203,7 @@ TP_RANKS, TP_STEPS = 2, 3          # mesh (1, 2): one model group, both ranks on
 # and the C = 128 stage's k = 7 / 11 on the partial-sum launch, K1 elsewhere
 TP_LAUNCHES = {"resblock_group": 3, "resblock_chain": 0, "rel_attention": 6, "log_mel": 0,
                "resblock_group_tp": 6, "resblock_chain_tp": 9,
-               "resblock_group_packed": 0, "adamw": 0}
+               "resblock_group_packed": 0, "adamw": 2}   # G's AdamW and D's, as on one card
 TP_KERNELS = {
     "resblock_group_tp": dict(
         name="K1 resblock_group_tp", entry="rvc_resblock_step_partial",

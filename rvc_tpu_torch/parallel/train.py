@@ -29,7 +29,8 @@ the reference's sharded step does under GSPMD:
 `ShardedAdamW` is ZeRO-1 on top of tensor parallelism: each rank keeps
 both moments of its data slice (`mesh.zero1_dim`, on a dimension "model"
 does not take) of its shard of every large parameter, updates that slice
-and all-gathers the slices over its data group. Ranks of a data group start
+(on the card one call of the AdamW kernel over every slice) and
+all-gathers the slices over its data group. Ranks of a data group start
 equal (`broadcast_modules` from its first rank) and stay equal bit for bit.
 
 With RVC_TPU_TRACE=1 the collectives of `all_reduce_mean` and
@@ -186,23 +187,19 @@ class ShardedAdamW(AdamW):
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor],
              gate: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """`AdamW.step` on this rank's slices, one tensor at a time (the
-        slices may not be contiguous, the norm may take a collective):
-        sanitize, `norm`, `adamw_update` over `_local`'s slices, `_share`.
-        Returns the norm."""
+        """`AdamW.step` on this rank's slices: one `ops.kernels.adamw` call
+        over `_local`'s views (on the CPU the per-tensor loop) from the whole
+        gradients, whose norm it computes, or takes from `norm` over a model
+        axis (a collective); then `_share`. Returns the norm."""
         with trace_span("optim/adamw"):
-            grads = K.sanitize_grads(grads)
-            g_norm = self.norm(grads)
-            K.adamw_update([self._local(i, p) for i, p in enumerate(self.params)],
-                           [self._local(i, g) for i, g in enumerate(grads)],
-                           self.mu, self.nu, self.count, self.hyper, g_norm, gate)
+            given = None if self.model.size == 1 else self.norm(K.sanitize_grads(grads))
+            g_norm = K.adamw(self.layout(), grads, self.count, self.hyper, gate, given)
             self._share()
             return g_norm
 
     def norm(self, grads: Sequence[torch.Tensor]) -> torch.Tensor:
-        """The global norm of the whole model's gradient from this rank's."""
-        if self.model.size == 1:
-            return K.global_norm(grads)
+        """The global norm of the whole model's gradient from this rank's
+        shards over the model axis (a collective)."""
         whole = torch.zeros((), device=grads[0].device)
         shards = torch.zeros(1, device=grads[0].device)
         for g, d in zip(grads, self.tp_dims):

@@ -21,8 +21,8 @@ skipped (parameters, moments, count), without a read-back to the host.
 It returns the sanitized gradients' global norm (a 0-dim device tensor).
 
 `parallel.train.ShardedAdamW` keeps the moments of a slice of each large
-parameter (ZeRO-1) and its own step: the per-tensor loop over the slices
-`_local` cuts, its own norm, then `_share`.
+parameter (ZeRO-1): its step is the same `ops.kernels.adamw` call over the
+slices `_local` cuts (the norm over the whole gradients), then `_share`.
 
 With RVC_TPU_TRACE=1 each `step` is the span optim/adamw (ZeRO's step
 too).
@@ -69,9 +69,15 @@ class AdamW:
         sanitized); with `gate` (a 0-dim bool tensor) False, nothing changes.
         Returns the sanitized gradients' global norm."""
         with trace_span("optim/adamw"):
-            if self._layout is None:
-                self._layout = K.Layout(self.params, self.mu, self.nu)
-            return K.adamw(self._layout, grads, self.count, self.hyper, gate)
+            return K.adamw(self.layout(), grads, self.count, self.hyper, gate)
+
+    def layout(self) -> K.Layout:
+        """The kernel's layout of the parameters, their `_local` views and the
+        moments, made at the first step."""
+        if self._layout is None:
+            self._layout = K.Layout(self.params, self.mu, self.nu,
+                                    [self._local(i, p) for i, p in enumerate(self.params)])
+        return self._layout
 
     def state_dict(self) -> Dict[str, object]:
         return {"mu": [t.detach().cpu() for t in self.mu],

@@ -6,9 +6,11 @@ gradients (NaN, +-inf, values past 1e3) is held bit for bit against the
 old sequence: `sanitize_grads`, then the old per-tensor step, copied below
 as it was, and to 1e-6 against the JAX package's own sequence:
 `rvc_tpu.train.train_step.sanitize_grads`, then its optax chain, gated as
-its train step gates D. `ShardedAdamW` on one rank, its own per-tensor
-loop, gives the same numbers as `AdamW`. The card's kernel is held to the
-plain version in `test_torch_adamw_cuda.py`."""
+its train step gates D. `ShardedAdamW` on one rank gives the same numbers
+as `AdamW`; on a rank of four, its layout's rows address exactly its ZeRO-1
+slices (`view_rows` against torch indexing), and its step is the old
+per-tensor loop over the slices bit for bit. The card's kernel is held to
+the plain version in `test_torch_adamw_cuda.py`."""
 
 import jax
 import jax.numpy as jnp
@@ -169,8 +171,8 @@ def test_plain_version_is_the_wrapper_on_cpu():
 
 @pytest.mark.parametrize("gate", [None, False])
 def test_sharded_adamw_one_rank_equals_adamw(gate):
-    """ZeRO's step on one rank (every slice whole, no collective) is its own
-    per-tensor loop and gives AdamW's numbers and norm bit for bit."""
+    """ZeRO's step on one rank (every slice whole, no collective) gives
+    AdamW's numbers and norm bit for bit."""
     a, b = fresh(), fresh()
     opt = AdamW(a, LR, SPE, DECAY, B1, B2, EPS, mu_dtype=torch.bfloat16)
     zero = ShardedAdamW(b, LR, data=Axis(), model=Axis(), min_size=1, steps_per_epoch=SPE,
@@ -197,3 +199,93 @@ def test_state_dict_count_is_a_copy():
     opt.load_state_dict(state)
     opt.step(raw_grads(2, 1.0))
     assert int(state["count"]) == 1 and int(opt.count) == 2
+
+
+# (whole shape, the dimension ZeRO-1 over four ranks splits at min_size 16):
+# the FFN's conv_2 and the phone embedding split along dim 1, conv_1 along
+# dim 0, a row of odd length along dim 0 (slices off a 4-element boundary)
+ZERO_SHAPES = [((8, 24, 3), 1), ((8, 24), 1), ((24, 8, 3), 0), ((12, 5), 0), ((7,), None),
+               ((1,), None), ((2, 3), None)]
+
+
+@pytest.mark.parametrize("index", range(4))
+@pytest.mark.parametrize("shape,dim", [s for s in ZERO_SHAPES if s[1] is not None]
+                         + [((4, 6, 8, 3), 2), ((16, 4), 0)], ids=str)
+def test_view_rows_address_the_slice(shape, dim, index):
+    """A narrow along `dim` of a contiguous tensor as the kernel's rows:
+    element offset + r * row_stride + c (r < rows, c < row_len) of the
+    whole is the slice's element r * row_len + c; rows, row_len and
+    row_stride as prod(shape[:d]), n * prod(shape[d+1:]) and shape[d] *
+    prod(shape[d+1:]), one row along dim 0."""
+    whole = torch.arange(int(np.prod(shape)), dtype=torch.float32).reshape(shape)
+    n = shape[dim] // 4
+    view = whole.narrow(dim, index * n, n)
+    r = K.view_rows(whole, view)
+    inner = int(np.prod(shape[dim + 1:]))
+    outer = int(np.prod(shape[:dim]))
+    assert (r.rows, r.row_len) == ((1, outer * n * inner) if outer == 1 else (outer, n * inner))
+    if outer > 1:
+        assert r.row_stride == shape[dim] * inner
+    assert r.offset == index * n * inner
+    at = r.offset + (torch.arange(r.rows)[:, None] * r.row_stride
+                     + torch.arange(r.row_len)[None, :])
+    assert torch.equal(whole.reshape(-1)[at.reshape(-1)], view.reshape(-1))
+    grad = torch.randn(shape)
+    layout = K.Layout([whole], [torch.zeros(n * inner * outer)], [torch.zeros(n * inner * outer)],
+                      [view])
+    assert torch.equal(layout.grad_view(0, grad), grad.narrow(dim, index * n, n))
+
+
+def test_view_rows_refuse_other_views():
+    """A transposed view, a view of another tensor or one off its contiguous
+    tensor has no rows of one stride: refused."""
+    whole = torch.zeros(6, 8)
+    for view in (whole.t(), whole[::2, ::2], torch.zeros(6, 8)[:, :4]):
+        with pytest.raises(ValueError):
+            K.view_rows(whole, view)
+    with pytest.raises(ValueError):
+        K.view_rows(whole.t(), whole.t()[:2])
+
+
+@pytest.mark.parametrize("gate", [None, False])
+@pytest.mark.parametrize("index", range(4))
+def test_zero1_rank_step_is_the_loop_over_its_slices(index, gate):
+    """ZeRO-1's layout on data index `index` of 4 (CPU): `adamw` over it,
+    three steps from whole raw gradients, equals bit for bit the old
+    sequence, `sanitize_grads`, the norm of the whole gradients, then
+    `adamw_update` over the narrowed slices; nothing outside the rank's
+    slices moves; a False gate changes nothing."""
+    shapes = [s for s, _ in ZERO_SHAPES]
+    g = torch.Generator().manual_seed(3)
+    start = [torch.randn(s, generator=g) for s in shapes]
+    params, ref = [p.clone() for p in start], [p.clone() for p in start]
+    opt = ShardedAdamW(params, LR, data=Axis(4, index), model=Axis(), min_size=16,
+                       steps_per_epoch=SPE, decay_rate=DECAY, b1=B1, b2=B2, eps=EPS,
+                       mu_dtype=torch.bfloat16)
+    assert opt.dims == [d for _, d in ZERO_SHAPES]
+
+    def cut(i, t):
+        d = opt.dims[i]
+        return t if d is None else t.narrow(d, index * t.shape[d] // 4, t.shape[d] // 4)
+
+    mu = [torch.zeros_like(cut(i, p), dtype=torch.bfloat16) for i, p in enumerate(ref)]
+    nu = [torch.zeros_like(cut(i, p)) for i, p in enumerate(ref)]
+    count = torch.zeros((), dtype=torch.int32)
+    flag = None if gate is None else torch.tensor(gate)
+    for k in range(3):
+        grads = [3.0 * torch.randn(s, generator=g) for s in shapes]
+        grads[0].view(-1)[:3] = torch.tensor([float("nan"), float("inf"), -5e3])
+        got = K.adamw(opt.layout(), [x.clone() for x in grads], opt.count, opt.hyper, flag)
+        clean = K.sanitize_grads(grads)
+        want = K.global_norm(clean)
+        K.adamw_update([cut(i, p) for i, p in enumerate(ref)],
+                       [cut(i, x) for i, x in enumerate(clean)], mu, nu, count, opt.hyper,
+                       want, flag)
+        assert torch.equal(got, want) and torch.equal(opt.count, count)
+    for a, b in zip(params + opt.mu + opt.nu, ref + mu + nu):
+        assert torch.equal(a, b)
+    for i, (p, p0) in enumerate(zip(params, start)):
+        outside = p0.clone()
+        cut(i, outside).copy_(cut(i, p))
+        assert torch.equal(p, outside)
+        assert gate is not False or torch.equal(p, p0)

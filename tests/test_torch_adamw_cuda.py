@@ -14,7 +14,12 @@ norm against the plain version's and against a float64 one within 1e-6
 1e-6 against the plain per-tensor loop run on the card from the same state
 and given the kernel's norm (so a last-bit difference of the norm cannot
 flip a bf16 rounding of the first moment). The kernel rounds after every
-operation as the eager ops do, so this holds to about the last bit."""
+operation as the eager ops do, so this holds to about the last bit.
+
+ZeRO-1's ranks (`ShardedAdamW`, four data indices on one card, `_share`
+left out: it is a collective): the same bars against the plain loop over
+the same slices, the norm over the whole gradients, bit-identical on every
+rank, as are the tensors every rank keeps whole."""
 
 import json
 from pathlib import Path
@@ -196,3 +201,129 @@ def test_all_40k_tensors_take_the_fused_path(dev):
         assert all(m.dtype == torch.bfloat16 for m in opt.mu)
         assert all(not torch.equal(p, q) for p, q in zip(opt.params, before))
         assert rel_l2(norm, K.global_norm(K.sanitize_grads(grads))) < 1e-6
+
+
+# G-like tensors as ZeRO-1 over four ranks cuts them (min_size 1 << 16),
+# with the dimension it splits: the FFN's conv_2 and the phone embedding
+# along dim 1 (strided slices), conv_1 along dim 0, a row of odd length
+# along dim 0 (slices off a 16-byte boundary), small tensors kept whole
+ZERO_SHAPES = [((192, 768, 3), 1), ((192, 768), 1), ((768, 192, 3), 0), ((36, 4097), 0),
+               ((192,), None), ((33,), None), ((1,), None), ((5, 3), None)]
+
+
+def zero_rank(params, index, mu_dtype, dev):
+    """`ShardedAdamW` of data index `index` of 4 over copies of `params`,
+    its all-gather left out."""
+    from rvc_tpu_torch.parallel.mesh import Axis
+    from rvc_tpu_torch.parallel.train import ShardedAdamW
+
+    opt = ShardedAdamW([p.clone() for p in params], 1e-3, data=Axis(4, index), model=Axis(),
+                       steps_per_epoch=SPE, decay_rate=DECAY, mu_dtype=mu_dtype)
+    opt._share = lambda: None
+    return opt
+
+
+@pytest.mark.parametrize("over", [False, True], ids=["under1", "over1"])
+@pytest.mark.parametrize("gate", [None, False])
+@pytest.mark.parametrize("mu_dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_zero1_slices_match_plain(dev, mu_dtype, gate, over):
+    """Three steps of each of four ranks' `ShardedAdamW.step` from the same
+    whole gradients: one kernel call a step; the norm the whole sanitized
+    gradients' (1e-6) and equal bit for bit on every rank; each rank's
+    slices, moments and count against the plain loop over the same slices
+    given the kernel's norm (1e-6); nothing outside the rank's slices moves;
+    the tensors every rank keeps whole equal bit for bit on every rank; a
+    False gate changes nothing."""
+    shapes = [s for s, _ in ZERO_SHAPES]
+    gen = torch.Generator(device=dev).manual_seed(2)
+    start = [torch.randn(s, device=dev, generator=gen) * 0.1 for s in shapes]
+    ranks = [zero_rank(start, k, mu_dtype, dev) for k in range(4)]
+    assert ranks[0].dims == [d for _, d in ZERO_SHAPES]
+    flag = None if gate is None else torch.tensor(gate, device=dev)
+    for step in range(3):
+        grads = grads_for(shapes, dev, 20 + step, over)
+        clean = K.sanitize_grads(grads)
+        exact = torch.sqrt(sum(torch.sum(g.double() ** 2) for g in clean))
+        norms = []
+        for opt in ranks:
+            cut = [opt._local(i, t) for i, t in enumerate(opt.params)]
+            plain = [t.clone() for t in cut + opt.mu + opt.nu] + [opt.count.clone()]
+            before = [p.clone() for p in opt.params]
+            versions = [p._version for p in opt.params]
+            launches = LAUNCHES["adamw"]
+            norm = opt.step(grads, flag)
+            assert LAUNCHES["adamw"] == launches + 1
+            assert all(p._version > v for p, v in zip(opt.params, versions))
+            assert rel_l2(norm, K.global_norm(clean)) < 1e-6 and rel_l2(norm, exact) < 1e-6
+            assert (float(norm) < 1.0) == (not over)
+            norms.append(norm)
+            n = len(cut)
+            K.adamw_update(plain[:n], [opt._local(i, g) for i, g in enumerate(clean)],
+                           plain[n:2 * n], plain[2 * n:3 * n], plain[-1], opt.hyper, norm, flag)
+            assert int(opt.count) == int(plain[-1]) == (0 if gate is False else step + 1)
+            got = cut + opt.mu + opt.nu
+            for i, (a, b) in enumerate(zip(got, plain[:-1])):
+                assert rel_l2(a, b) < 1e-6, (opt.data.index, i % n, ("p", "mu", "nu")[i // n])
+            for i, (p, p0) in enumerate(zip(opt.params, before)):
+                outside = p0.clone()
+                opt._local(i, outside).copy_(opt._local(i, p))
+                assert torch.equal(p, outside), (opt.data.index, i)
+        assert all(torch.equal(x, norms[0]) for x in norms[1:])
+    for i, (_, d) in enumerate(ZERO_SHAPES):
+        if d is None:
+            assert all(torch.equal(opt.params[i], ranks[0].params[i]) for opt in ranks[1:])
+        if gate is False:
+            assert all(torch.equal(opt.params[i], start[i]) for opt in ranks)
+
+
+def test_zero1_strided_slices_of_any_row_length(dev):
+    """Dim-1 slices whose rows are no multiple of 4 (row_len 3 x 5 = 15, off
+    a 16-byte boundary: element by element) and whose rows are (row_len
+    20, aligned: four at a time) give the plain loop's numbers over the
+    slice, and nothing outside it moves."""
+    shapes = [(64, 20, 3), (64, 20, 4)]
+    gen = torch.Generator(device=dev).manual_seed(4)
+    params = [torch.randn(s, device=dev, generator=gen) for s in shapes]
+    views = [p.narrow(1, 5, 5) for p in params]
+    mu = [torch.zeros_like(v, dtype=torch.bfloat16) for v in views]
+    nu = [torch.zeros_like(v) for v in views]
+    layout = K.Layout(params, mu, nu, views)
+    assert [r.row_len for r in layout.rows] == [15, 20]
+    assert layout.update_chunks.tolist() == [[0, 0], [1, 0]]      # over the views
+    h = K.Hyper(1e-3, SPE, DECAY, 0.8, 0.99, 1e-9, torch.tensor(0.8, dtype=torch.bfloat16).item())
+    count = torch.zeros((), dtype=torch.int32, device=dev)
+    for k in range(2):
+        grads = grads_for(shapes, dev, 30 + k, True)
+        clean = K.sanitize_grads(grads)
+        plain = [t.clone() for t in views + mu + nu] + [count.clone()]
+        before = [p.clone() for p in params]
+        norm = K.adamw(layout, grads, count, h)
+        K.adamw_update(plain[:2], [g.narrow(1, 5, 5) for g in clean], plain[2:4], plain[4:6],
+                       plain[-1], h, norm)
+        for a, b in zip(views + mu + nu, plain[:-1]):
+            assert rel_l2(a, b) < 1e-6
+        for p, p0 in zip(params, before):
+            assert torch.equal(torch.cat([p[:, :5], p[:, 10:]], 1),
+                               torch.cat([p0[:, :5], p0[:, 10:]], 1))
+
+
+def test_given_norm_is_taken(dev, shapes):
+    """With `norm` given (tensor parallelism's collective norm), pass 1
+    reads no gradient: the step returns that norm, clips by it and matches
+    the plain loop given it."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    params = [torch.randn(s, device=dev, generator=gen) * 0.1 for s in shapes]
+    layout = K.Layout(params, [torch.zeros_like(p, dtype=torch.bfloat16) for p in params],
+                      [torch.zeros_like(p) for p in params])
+    h = K.Hyper(1e-3, SPE, DECAY, 0.8, 0.99, 1e-9, torch.tensor(0.8, dtype=torch.bfloat16).item())
+    count = torch.zeros((), dtype=torch.int32, device=dev)
+    given = torch.tensor(2.5, device=dev)
+    grads = grads_for(shapes, dev, 40, True)
+    n = len(params)
+    plain = state_of(layout, count)
+    norm = K.adamw(layout, grads, count, h, norm=given)
+    assert torch.equal(norm, given)
+    K.adamw_update(plain[:n], K.sanitize_grads(grads), plain[n:2 * n], plain[2 * n:3 * n],
+                   plain[-1], h, given)
+    for a, b in zip(state_of(layout, count), plain):
+        assert rel_l2(a, b) < 1e-6
