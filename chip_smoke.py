@@ -36,10 +36,7 @@ Phases, one JSON line each (a `kernel` line per kernel call):
             run in float32 by cuDNN (`emu_rel_l2`, `cudnn_emu_rel_l2`), and
             carry `cudnn_bf16_ms`: the plain chain on
             bf16 copies of the inputs (cuDNN bf16 convs, bf16 residual), a
-            yardstick, not the same function, and `per_step_ms` /
-            `per_step_device_ms`: the same call by the per-step kernel (one
-            launch per dilation step, as K1/K2 ran before the one-pass
-            design), a yardstick on no path. Every line carries its launch
+            yardstick, not the same function. Every line carries its launch
             `grid` (K1/K2: `launch_plan`'s mode, blocks, tile, halo, shared
             bytes, stages, launches; K3 / K4: blocks, blocks an SM, waves on
             the card's SMs); K3 also
@@ -718,11 +715,6 @@ def phase_kernels(calls: list, launches: dict, only=tuple(KERNELS)) -> list:
                 bf_args, bf_kwargs = cast(args, torch.bfloat16), cast(kwargs, torch.bfloat16)
                 extra["cudnn_bf16_ms"] = cuda_ms(lambda: plain(*bf_args, **bf_kwargs))
                 del bf_args, bf_kwargs
-                # the same call by the per-step kernel, as K1/K2 ran before the
-                # one-pass design: a yardstick in the same run, on no path
-                per_step = per_step_fn(name)
-                extra["per_step_ms"] = cuda_ms(lambda: per_step(*args, **kwargs))
-                extra["per_step_device_ms"] = device_kernel_ms(lambda: per_step(*args, **kwargs))
             extra["grid"] = kernel_grid(name, a)
             extra["device_ms"] = device_kernel_ms(lambda: fn(*args, **kwargs))
             if name == "rel_attention":
@@ -754,9 +746,6 @@ def phase_kernels(calls: list, launches: dict, only=tuple(KERNELS)) -> list:
                 r.setdefault("grids", []).append({k: extra["grid"][k] for k in (
                     "mode", "C", "T", "blocks", "tile", "halo", "smem_bytes", "stages",
                     "launches")})
-                for k in ("per_step_ms", "per_step_device_ms"):
-                    r[k] = r.get(k, 0.0) + (sum(extra[k].values()) if isinstance(extra[k], dict)
-                                            else extra[k])
             elif "grid" in extra:
                 r["grid"] = extra["grid"]
             if name == "rel_attention":
@@ -791,18 +780,10 @@ def phase_kernels(calls: list, launches: dict, only=tuple(KERNELS)) -> list:
             bound_ms=bound_ms, bound_by=bound_by, bound=bound_text(spec["peak"]),
             library_ms=None, cudnn_bf16_ms=r.get("cudnn_bf16_ms"), sdpa_ms=r.get("sdpa_ms"),
             sdpa_ms_queued=r.get("sdpa_ms_queued"),
-            grid=r.get("grid", r.get("grids")), per_step_ms=r.get("per_step_ms"),
-            per_step_device_ms=r.get("per_step_device_ms"),
+            grid=r.get("grid", r.get("grids")),
             emu_rel_l2=r.get("emu_rel_l2"), emu_update_rel_l2=r.get("emu_update_rel_l2"),
             cudnn_emu_rel_l2=r.get("cudnn_emu_rel_l2")))
     return summary
-
-
-def per_step_fn(name: str):
-    """K1's / K2's function by the per-step kernel (the yardstick)."""
-    from rvc_tpu_torch.ops.kernels import resblock as KR
-
-    return KR.resblock_group_per_step if name == "resblock_group" else KR.resblock_chain_per_step
 
 
 def wgmma_count() -> dict:
@@ -2260,7 +2241,9 @@ def phase_realtime(rvc, cpu_rvc, index_path: str) -> dict:
     # checks: staged against fused, silence, the card against the host
     p.source_noise = False
     checks = {}
-    eng = {k: VoiceChanger(rvc, silent_threshold=RT_GATE_DB).vc_model for k in ("0", "1")}
+    eng = {k: VoiceChanger(rvc, silent_threshold=RT_GATE_DB).vc_model
+           for k in ("staged", "fused")}
+    eng["staged"]._fused_block_ok = lambda: False      # the other f0 methods' route
     corr = []
     for i in range(4):
         b = clip[i * bf: (i + 1) * bf]
@@ -2269,11 +2252,9 @@ def phase_realtime(rvc, cpu_rvc, index_path: str) -> dict:
         # (as the reference's), so the fused block does too here
         with env("RVC_TPU_BF16", "0"):
             for k, e in eng.items():
-                os.environ["RVC_TPU_RT_FUSED"] = k
                 got[k] = e.inference(b, index_rate=0.0)[0]
-        os.environ["RVC_TPU_RT_FUSED"] = "1"
-        corr.append(float(np.corrcoef(got["0"], got["1"])[0, 1]))
-        max_abs = float(np.abs(got["0"] - got["1"]).max())
+        corr.append(float(np.corrcoef(got["staged"], got["fused"])[0, 1]))
+        max_abs = float(np.abs(got["staged"] - got["fused"]).max())
         if not (corr[-1] > 0.999 and max_abs <= 5e-3):
             raise AssertionError(f"block {i}: staged against fused corr {corr[-1]}, "
                                  f"max |d| {max_abs}")
@@ -2812,21 +2793,26 @@ def step_grads(cfg, net_g, net_d, batch, draws) -> tuple:
 @contextlib.contextmanager
 def bf16_host():
     """The decoder's K1/K2 calls on host tensors take the card's arithmetic:
-    their autograd Functions with the plain version's bf16 emulation as the
-    forward (bf16 conv operands, float32 sums) and the float32 plain
-    autograd as the backward."""
+    `KernelFunction` with the plain version's bf16 emulation as the forward
+    (bf16 conv operands, float32 sums) and the float32 plain autograd as
+    the backward."""
     from rvc_tpu_torch.models import generators, layers
+    from rvc_tpu_torch.ops.kernels import KernelFunction
     from rvc_tpu_torch.ops.kernels import resblock as KR
 
     def group(x, weights, kernel_sizes, dilations, slope=0.1):
-        return KR.GroupFunction.apply(
-            functools.partial(KR.resblock_group_reference, bf16_operands=True),
-            tuple(kernel_sizes), tuple(map(tuple, dilations)), slope, x, *weights)
+        ks, ds = tuple(kernel_sizes), tuple(map(tuple, dilations))
+        return KernelFunction.apply(
+            lambda x, *w: KR.resblock_group_reference(x, w, ks, ds, slope, bf16_operands=True),
+            lambda x, *w: KR.resblock_group_reference(x, w, ks, ds, slope), x, *weights)
 
     def chain(x, w1, b1, w2, b2, kernel_size, dilations=(1, 3, 5), slope=0.1):
-        return KR.ChainFunction.apply(
-            functools.partial(KR.resblock_chain_reference, bf16_operands=True),
-            kernel_size, tuple(dilations), slope, x, w1, b1, w2, b2)
+        ds = tuple(dilations)
+        return KernelFunction.apply(
+            lambda *t: KR.resblock_chain_reference(*t, kernel_size, ds, slope,
+                                                   bf16_operands=True),
+            lambda *t: KR.resblock_chain_reference(*t, kernel_size, ds, slope),
+            x, w1, b1, w2, b2)
 
     saved = generators.resblock_group, layers.resblock_chain
     generators.resblock_group, layers.resblock_chain = group, chain

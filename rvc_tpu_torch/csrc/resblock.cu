@@ -71,15 +71,15 @@
 // The host-side plan (tile, halo, stages, shared bytes, mode) is
 // ops/kernels/resblock.py : launch_plan; this file checks it.
 //
-// The per-step kernel (resblock_step_kernel, rvc_resblock_step): the earlier
-// design, one launch per dilation step on mma.sync.m16n8k16 with cp.async weight
-// chunks, 8 warps on TT = 16384 / C rows, the Bf plane over the A plane; each
-// row tile sums 2 k16 steps in fresh registers before adding them to its
-// float32 accumulators. It stays for the partial-sum launch and as a yardstick.
+// The per-step kernel (resblock_step_kernel): the earlier design, one launch
+// per dilation step on mma.sync.m16n8k16 with cp.async weight chunks, 8 warps
+// on TT = 16384 / C rows, the Bf plane over the A plane; each row tile sums 2
+// k16 steps in fresh registers before adding them to its float32 accumulators.
+// It stays for the partial-sum launch alone.
 //
 // The partial-sum launch (tensor parallelism, rvc_resblock_step_partial): a rank
-// of a model group of n holds C_M = C / n of the step's mid channels (conv1's
-// outputs, conv2's inputs). The same kernel, instantiated on (C, C_M), runs
+// of a model group of n holds C_M = C / n < C of the step's mid channels
+// (conv1's outputs, conv2's inputs). The kernel, instantiated on (C, C_M), runs
 // conv1 on C_M outputs (C_M / 32 warps across channels, the rest across rows),
 // the Bf plane on C_M channels, and conv2 from C_M inputs to all C outputs; it
 // writes the rank's partial conv2 sum, plus x + b2 on the rank that carries the
@@ -110,8 +110,8 @@ constexpr int MAX_K = 17;                // conv1 needs at most TT / 16 + 1 row 
 constexpr int MIN_BLOCKS = 2;
 constexpr int CHUNK_BYTES = 16384;
 
-// C: the step's input and output channels; CM: its mid channels (conv1's
-// outputs, conv2's inputs), C for a whole step
+// C: the step's input and output channels; CM < C: the rank's share of its mid
+// channels (conv1's outputs, conv2's inputs)
 template <int C, int CM> struct Cfg {
   static constexpr int TT = 16384 / C;          // 512, 256, 128, 64 output rows
   static constexpr int LD = C + PAD;            // A plane row stride (bf16)
@@ -120,7 +120,7 @@ template <int C, int CM> struct Cfg {
   static constexpr int WLD = KCH + PAD;         // weight row stride (bf16)
   static_assert(TT / 16 == 4 * (WARPS / (C / 32)), "conv2's row tiles split 4 per warp");
   static_assert(KCH % 32 == 0, "a chunk holds whole KG groups of k16 steps");
-  static_assert(CM % 32 == 0 && CM <= C, "conv1's outputs split 32 per warp");
+  static_assert(CM % 32 == 0 && CM < C, "conv1's outputs split 32 per warp");
 };
 
 __device__ __forceinline__ float lrelu(float v, float slope) {
@@ -254,15 +254,14 @@ __device__ __forceinline__ void conv_mma(float (&acc)[MI][NJ][4],
   }
 }
 
-// One dilation step. CM == C: y = alpha * (x + conv2 + b2) + beta * y. CM < C
-// (a rank's share of the mid channels): y = conv2 (+ x + b2 where residual), with
-// alpha 1 and beta 0.
+// A rank's share of one dilation step (CM < C of its mid channels):
+// y = conv2 (+ x + b2 where residual).
 template <int C, int CM>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) resblock_step_kernel(
     const float* __restrict__ x, float* __restrict__ y,
     const __nv_bfloat16* __restrict__ w1, const float* __restrict__ b1,
     const __nv_bfloat16* __restrict__ w2, const float* __restrict__ b2,
-    int T, int K, int dil, float slope, float alpha, float beta, int residual) {
+    int T, int K, int dil, float slope, int residual) {
   using G = Cfg<C, CM>;
   constexpr int TT = G::TT, LD = G::LD, LDM = G::LDM;
   constexpr int WN1 = CM / 32, WM1 = WARPS / WN1;  // conv1: CM outputs
@@ -337,8 +336,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) resblock_step_kernel(
     }
   }
 
-  // conv2 on TT rows, then y = alpha * (x + conv2 + b2) + beta * y (x and b2
-  // only where residual)
+  // conv2 on TT rows, then y = conv2 (+ x + b2 where residual)
   conv_mma<C, CM, C, CM, LDM>(acc, Bf, TT / 16, 1, nchunk1, nchunk2, KC2, nchunk1,
                               nchunk1 + nchunk2, K, w1, w2, wbuf);
   const int wm = warp / WN2, n0 = (warp % WN2) * 32;
@@ -355,15 +353,8 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) resblock_step_kernel(
           const float2 xv = residual
               ? __ldg(reinterpret_cast<const float2*>(xb + (size_t)t * C + n))
               : make_float2(0.f, 0.f);
-          float2* dst = reinterpret_cast<float2*>(yb + (size_t)t * C + n);
-          float2 res = make_float2(alpha * (xv.x + acc[i][j][2 * h] + bb.x),
-                                   alpha * (xv.y + acc[i][j][2 * h + 1] + bb.y));
-          if (beta != 0.f) {
-            const float2 old = *dst;
-            res.x += beta * old.x;
-            res.y += beta * old.y;
-          }
-          *dst = res;
+          *reinterpret_cast<float2*>(yb + (size_t)t * C + n) =
+              make_float2(xv.x + acc[i][j][2 * h] + bb.x, xv.y + acc[i][j][2 * h + 1] + bb.y);
         }
       }
     }
@@ -373,7 +364,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) resblock_step_kernel(
 template <int C, int CM>
 int launch(const float* x, float* y, const __nv_bfloat16* w1, const float* b1,
            const __nv_bfloat16* w2, const float* b2, int B, int T, int K, int dil,
-           float slope, float alpha, float beta, int residual, cudaStream_t stream) {
+           float slope, int residual, cudaStream_t stream) {
   using G = Cfg<C, CM>;
   // the opt-in shared memory limit, set once for this instantiation
   static const cudaError_t attr = cudaFuncSetAttribute(
@@ -386,31 +377,11 @@ int launch(const float* x, float* y, const __nv_bfloat16* w1, const float* b1,
     return (int)cudaErrorInvalidValue;
   const dim3 grid((T + G::TT - 1) / G::TT, B);
   resblock_step_kernel<C, CM><<<grid, THREADS, smem, stream>>>(
-      x, y, w1, b1, w2, b2, T, K, dil, slope, alpha, beta, residual);
+      x, y, w1, b1, w2, b2, T, K, dil, slope, residual);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
-
-// One dilation step of a ResBlock chain: y = alpha * (x + conv2(...)) + beta * y.
-// x, y: (B, T, C) float32, distinct buffers; w1, w2: (C, K, C) bf16 as (out, tap,
-// in); b1, b2: (C,) float32. K odd, at most 17. C in {32, 64, 128, 256}.
-// beta == 0 never reads y. Returns cudaGetLastError() (cudaErrorInvalidValue for
-// a shape the kernel does not take).
-extern "C" int rvc_resblock_step(const float* x, float* y, const void* w1,
-                                 const float* b1, const void* w2, const float* b2,
-                                 int B, int T, int C, int K, int dil, float slope,
-                                 float alpha, float beta, cudaStream_t stream) {
-  const auto* v1 = static_cast<const __nv_bfloat16*>(w1);
-  const auto* v2 = static_cast<const __nv_bfloat16*>(w2);
-  switch (C) {
-    case 32: return launch<32, 32>(x, y, v1, b1, v2, b2, B, T, K, dil, slope, alpha, beta, 1, stream);
-    case 64: return launch<64, 64>(x, y, v1, b1, v2, b2, B, T, K, dil, slope, alpha, beta, 1, stream);
-    case 128: return launch<128, 128>(x, y, v1, b1, v2, b2, B, T, K, dil, slope, alpha, beta, 1, stream);
-    case 256: return launch<256, 256>(x, y, v1, b1, v2, b2, B, T, K, dil, slope, alpha, beta, 1, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
 
 // The partial-sum launch of one dilation step on a tensor-parallel rank that holds
 // CM of the step's C mid channels: y = conv2(lrelu(conv1(lrelu(x)) + b1)) over
@@ -427,13 +398,13 @@ extern "C" int rvc_resblock_step_partial(const float* x, float* y, const void* w
   const auto* v2 = static_cast<const __nv_bfloat16*>(w2);
   const int r = residual != 0;
   if (C == 128 && CM == 64)
-    return launch<128, 64>(x, y, v1, b1, v2, b2, B, T, K, dil, slope, 1.f, 0.f, r, stream);
+    return launch<128, 64>(x, y, v1, b1, v2, b2, B, T, K, dil, slope, r, stream);
   if (C == 128 && CM == 32)
-    return launch<128, 32>(x, y, v1, b1, v2, b2, B, T, K, dil, slope, 1.f, 0.f, r, stream);
+    return launch<128, 32>(x, y, v1, b1, v2, b2, B, T, K, dil, slope, r, stream);
   if (C == 256 && CM == 128)
-    return launch<256, 128>(x, y, v1, b1, v2, b2, B, T, K, dil, slope, 1.f, 0.f, r, stream);
+    return launch<256, 128>(x, y, v1, b1, v2, b2, B, T, K, dil, slope, r, stream);
   if (C == 256 && CM == 64)
-    return launch<256, 64>(x, y, v1, b1, v2, b2, B, T, K, dil, slope, 1.f, 0.f, r, stream);
+    return launch<256, 64>(x, y, v1, b1, v2, b2, B, T, K, dil, slope, r, stream);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -21,7 +21,7 @@ run can show that the main path went through the kernels; `count_launch`
 adds one under a lock (`BatchConverter`'s mesh launches from one host
 thread per device). `CONVERSIONS` counts K1/K2's weight conversions
 (`resblock.cached`'s misses) by `cached`'s tag: "stage" for the one-pass
-kernel's buffers, "step" for the per-step kernel's; `reset_launches` zeroes
+kernel's buffers, "step" for the partial-sum launch's; `reset_launches` zeroes
 both counters, `count_launch(tag, CONVERSIONS)` adds to the second. `record_calls`
 keeps a copy of every wrapper call made inside it, so the calls a run
 made can be replayed and timed one by one (detached copies: a recording
@@ -29,14 +29,17 @@ holds no autograd graph). K1/K2's weight conversions are cached per
 weight version (`resblock.cached`), so a replay, as a conversion, converts
 once.
 
-In training K1-K3 run under `torch.autograd.Function`s (`ChainFunction`,
-`GroupFunction`, `RelAttentionFunction`; K1's packed entry
-`GroupPackedFunction`): the forward is the kernel, the backward float32
-autograd of the plain version re-run from the saved inputs (`plain_vjp`),
-as the reference's `custom_vjp`s take XLA's autodiff of the plain chain
-(`rvc_tpu/ops/pallas/resblock.py:_chain_bwd`, `_group_bwd`,
+A wrapper that runs under autograd (K1-K3 and the `_tp` and packed
+entries) hands `run_kernel` two callables on its tensors alone, the static
+arguments bound: the kernel's launch and its plain version. On CPU tensors
+`run_kernel` runs the plain version; on the card it runs the launch under
+the one `torch.autograd.Function`, `KernelFunction`, whose backward is the
+float32 autograd of the plain version re-run from the saved inputs
+(`plain_vjp`), as the reference's `custom_vjp`s take XLA's autodiff of the
+plain chain (`rvc_tpu/ops/pallas/resblock.py:_chain_bwd`, `_group_bwd`,
 `_group_packed_bwd`; `attention.py:_bwd`). The JAX package has no backward
-kernel, so neither has the port.
+kernel, so neither has the port. A new kernel or mode writes its launch
+and its plain version, and no Function of its own.
 """
 
 from __future__ import annotations
@@ -113,3 +116,28 @@ def plain_vjp(plain: Callable, inputs: Sequence[torch.Tensor], needs: Sequence[b
         want = [t for t, n in zip(leaves, needs) if n]
         grads = iter(torch.autograd.grad(plain(*leaves), want, grad) if want else ())
     return tuple(next(grads) if n else None for n in needs)
+
+
+class KernelFunction(torch.autograd.Function):
+    """A kernel under autograd: the forward is launch(*tensors); the backward
+    the float32 autograd of plain(*tensors), the gradients of the tensors
+    that need one (`plain_vjp`)."""
+
+    @staticmethod
+    def forward(ctx, launch: Callable, plain: Callable, *tensors):
+        ctx.save_for_backward(*tensors)
+        ctx.plain = plain
+        return launch(*tensors)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (None, None) + plain_vjp(ctx.plain, ctx.saved_tensors,
+                                        ctx.needs_input_grad[2:], grad)
+
+
+def run_kernel(launch: Callable, plain: Callable, *tensors: torch.Tensor) -> torch.Tensor:
+    """plain(*tensors) for CPU tensors; on the card launch(*tensors) under
+    `KernelFunction`."""
+    if tensors[0].device.type == "cpu":
+        return plain(*tensors)
+    return KernelFunction.apply(launch, plain, *tensors)

@@ -18,7 +18,7 @@ the merge (log-sum-exp over the key splits, the band weights times
 `emb_rel_v`). The output is (B, H, T, D) over (B, T, H, D) memory, which
 the caller's `transpose(1, 2).reshape(B, T, C)` takes without a copy.
 
-On the card the call runs under autograd (`RelAttentionFunction`): the
+On the card a float32 call runs under autograd (`run_kernel`): the
 forward is the kernel, the backward the float32 plain version's autograd,
 re-run from the saved inputs (the reference's `_bwd`): gradients of q, k,
 v, emb_rel_k and emb_rel_v, none of key_lens. The garbage rows take no
@@ -43,7 +43,7 @@ import torch
 
 from rvc_tpu_torch.ops.attention import relative_attention_xla
 from rvc_tpu_torch.ops.commons import sequence_mask
-from rvc_tpu_torch.ops.kernels import build, count_launch, plain_vjp, recorded
+from rvc_tpu_torch.ops.kernels import build, count_launch, recorded, run_kernel
 
 HEAD_DIMS = (32, 64, 96, 128)
 MAX_WINDOW = 15          # 2w + 1 <= 31
@@ -92,8 +92,7 @@ def rel_attention_reference(q, k, v, emb_rel_k, emb_rel_v, window_size: int,
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, emb_rel_k: torch.Tensor,
             emb_rel_v: torch.Tensor, window_size: int, key_lens: torch.Tensor) -> torch.Tensor:
-    """K3's launch on CUDA tensors, float32 or bf16 rows (the forward of
-    `RelAttentionFunction` for float32)."""
+    """K3's launch on CUDA tensors, float32 or bf16 rows."""
     B, H, T, D = q.shape
     dtype = q.dtype
     w = window_size
@@ -131,26 +130,6 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, emb_rel_k: torch.
     return out
 
 
-class RelAttentionFunction(torch.autograd.Function):
-    """K3 under autograd: `forward` (the kernel's launch; any callable with
-    `rel_attention_reference`'s signature) computes the output, the float32
-    plain version's autograd the gradients of q, k, v, emb_rel_k, emb_rel_v."""
-
-    @staticmethod
-    def forward(ctx, forward, window_size, q, k, v, emb_rel_k, emb_rel_v, key_lens):
-        ctx.save_for_backward(q, k, v, emb_rel_k, emb_rel_v, key_lens)
-        ctx.window_size = window_size
-        return forward(q, k, v, emb_rel_k, emb_rel_v, window_size, key_lens)
-
-    @staticmethod
-    def backward(ctx, grad):
-        *floats, key_lens = ctx.saved_tensors
-        w = ctx.window_size
-        grads = plain_vjp(lambda *t: rel_attention_reference(*t, w, key_lens),
-                          floats, ctx.needs_input_grad[2:7], grad)
-        return (None, None) + grads + (None,)
-
-
 @recorded
 def rel_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   emb_rel_k: torch.Tensor, emb_rel_v: torch.Tensor,
@@ -158,13 +137,13 @@ def rel_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q/k/v (B, H, T, D); emb_rel_* (1 | H, 2w+1, D); key_lens (B,) int ->
     (B, H, T, D), float32 or bf16 (all five inputs of one dtype). Query rows
     at or past a length are garbage."""
-    if q.device.type == "cpu":
-        return rel_attention_reference(q, k, v, emb_rel_k, emb_rel_v, window_size, key_lens)
-    if q.dtype == torch.bfloat16:
+    if q.device.type != "cpu" and q.dtype == torch.bfloat16:
         if torch.is_grad_enabled() and any(
                 t.requires_grad for t in (q, k, v, emb_rel_k, emb_rel_v)):
             raise RuntimeError("rel_attention: a bf16 call has no backward "
                                "(training runs float32)")
         return _launch(q, k, v, emb_rel_k, emb_rel_v, window_size, key_lens)
-    return RelAttentionFunction.apply(_launch, window_size, q, k, v, emb_rel_k, emb_rel_v,
-                                      key_lens)
+    return run_kernel(
+        lambda q, k, v, ek, ev, lens: _launch(q, k, v, ek, ev, window_size, lens),
+        lambda q, k, v, ek, ev, lens: rel_attention_reference(q, k, v, ek, ev, window_size, lens),
+        q, k, v, emb_rel_k, emb_rel_v, key_lens)

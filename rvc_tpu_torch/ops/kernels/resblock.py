@@ -34,10 +34,10 @@ inference converts once and training again after each optimizer step;
 `ResBlock.stacked_weights` keeps its stacked tensors under no-grad for the
 same reason. `drop_cached` forgets a model's entries.
 
-On the card both run under autograd (`ChainFunction`, `GroupFunction`):
-the forward is the kernel; the backward re-runs the float32 plain version
-from the saved inputs and takes its autograd (the reference's `_chain_bwd`
-/ `_group_bwd`), so training's gradients are exact float32 ones of the
+On the card every wrapper runs under autograd (`run_kernel`): the forward
+is the kernel; the backward re-runs the float32 plain version from the
+saved inputs and takes its autograd (the reference's `_chain_bwd` /
+`_group_bwd`), so training's gradients are exact float32 ones of the
 chain while the forward keeps the kernel's bf16 operands.
 
 **Tensor parallelism** (`parallel.tp`): on a rank of a model group of n,
@@ -55,13 +55,9 @@ collective. The kernel takes (C, C_M) in {(128, 64), (128, 32), (256, 128),
 `resblock_chain_partial_reference` and `resblock_group_partial_reference`,
 compute the same with the differentiable collectives (the residual and b2
 added after the all-reduce, on every rank); the backward of the card's
-launches (`ChainTPFunction`, `GroupTPFunction`) re-runs them in float32.
-
-**The per-step yardstick** (`resblock_group_per_step`,
-`resblock_chain_per_step`): the same function by the per-step kernel's
-(C, C) instance (`rvc_resblock_step`), one launch per dilation step, as
-K1/K2 ran before the one-pass design. No path calls them and they count
-no launches: `chip_smoke.py` times them beside K1/K2 on the same inputs.
+launches re-runs them in float32. The partial launch reads its weights in
+the per-step layout (`kernel_weights`), converted once per weight version
+under `cached`'s "step" tag.
 
 **The packed lane layout** (`resblock_group_packed`, the counterpart of
 `rvc_tpu/ops/pallas/resblock.py : resblock_group_packed`): a K1 stage whose
@@ -70,8 +66,8 @@ row, with `t_valid` = T <= R * P true steps. It unfolds x to (B, R * P, C),
 runs K1 on the first T steps (the kernel's zero boundary is the
 reference's validity mask at `packed_t`), and folds the result back, with
 zeros past T. Its launches count apart (`resblock_group_packed`); its
-backward (`GroupPackedFunction`) unfolds, takes the plain stage's autograd
-and refolds, as the reference's `_group_packed_bwd`.
+backward unfolds, takes the plain stage's autograd and refolds, as the
+reference's `_group_packed_bwd`.
 """
 
 from __future__ import annotations
@@ -87,7 +83,7 @@ import torch
 from torch.nn import functional as F
 
 from rvc_tpu_torch.ops import conv as conv_ops
-from rvc_tpu_torch.ops.kernels import CONVERSIONS, build, count_launch, plain_vjp, recorded
+from rvc_tpu_torch.ops.kernels import CONVERSIONS, build, count_launch, recorded, run_kernel
 from rvc_tpu_torch.parallel.mesh import Axis
 from rvc_tpu_torch.parallel.tp import all_reduce_model, copy_to_model, reduce_from_model
 from rvc_tpu_torch.utils.profiling import trace_span
@@ -380,7 +376,7 @@ def resblock_group_tiled_reference(x, weights, kernel_sizes, dilations,
 def kernel_weights(w: torch.Tensor) -> torch.Tensor:
     """(S, K, Cin, Cout) float32 -> (S, Cout, K, Cin) bf16, contiguous: per
     step, row n holds every tap's Cin weights of output channel n, the
-    `.col` B operand of the per-step kernel's mma."""
+    `.col` B operand of the partial-sum launch's mma."""
     return w.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous()
 
 
@@ -450,7 +446,7 @@ def drop_cached(tensors: Sequence[torch.Tensor]) -> int:
 
 
 def _step_weights(w: torch.Tensor) -> torch.Tensor:
-    """`kernel_weights(w)` for the per-step kernel, once per weight version."""
+    """`kernel_weights(w)` for the partial-sum launch, once per weight version."""
     return cached("step", (w,), lambda: kernel_weights(w))
 
 
@@ -466,16 +462,6 @@ def stage_buffers(weights: Sequence[torch.Tensor]):
             biases.append(torch.stack([b1, b2], 1).reshape(-1))
         return torch.cat(chunks), torch.cat(biases).float().contiguous()
     return cached("stage", weights, make)
-
-
-@functools.cache
-def _lib():
-    """The per-step kernel's C entry, with its ctypes signature set once."""
-    fn = build.load("resblock").rvc_resblock_step
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
-        ctypes.c_float] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
 
 
 @functools.cache
@@ -578,7 +564,7 @@ def _launch_chains(x, weights, kernel_sizes, dilations, slope: float, out: torch
 
 def _launch_chain(x, w1, b1, w2, b2, kernel_size: int, dilations: Sequence[int],
                   slope: float) -> torch.Tensor:
-    """K2's launches on CUDA tensors (the forward of `ChainFunction`)."""
+    """K2's launches on CUDA tensors."""
     _check(x, (w1, b1, w2, b2), "resblock_chain")
     x = _aligned(x)
     out = torch.empty_like(x)
@@ -590,8 +576,7 @@ def _launch_chain(x, w1, b1, w2, b2, kernel_size: int, dilations: Sequence[int],
 def _launch_group(x, weights, kernel_sizes: Sequence[int],
                   dilations: Sequence[Sequence[int]], slope: float,
                   counter: str = "resblock_group") -> torch.Tensor:
-    """K1's launches on CUDA tensors (the forward of `GroupFunction`),
-    counted under `counter`."""
+    """K1's launches on CUDA tensors, counted under `counter`."""
     _check(x, weights, counter)
     x = _aligned(x)
     out = torch.empty_like(x)
@@ -603,61 +588,11 @@ def _launch_group(x, weights, kernel_sizes: Sequence[int],
 def _launch_group_packed(x, weights, kernel_sizes: Sequence[int],
                          dilations: Sequence[Sequence[int]], channels: int, t_valid: int,
                          slope: float) -> torch.Tensor:
-    """K1's launches on the unfolded packed x, folded back (the forward of
-    `GroupPackedFunction`)."""
+    """K1's launches on the unfolded packed x, folded back."""
     _check_packed(x, channels, t_valid)
     y = _launch_group(_unfold(x, channels, t_valid), weights, kernel_sizes, dilations, slope,
                       counter="resblock_group_packed")
     return _fold(y, x.shape[1])
-
-
-def _per_step_chain(x, w1, b1, w2, b2, kernel_size, dilations, slope, out, alpha,
-                    beta) -> None:
-    """The per-step kernel's launches of one chain; the last writes alpha *
-    chain + beta * out. Counts nothing."""
-    B, T, C = x.shape
-    K = kernel_size
-    if K % 2 == 0 or w1.shape[1:] != (K, C, C) or w2.shape[1:] != (K, C, C):
-        raise ValueError(f"resblock per-step: weights {tuple(w1.shape)} do not match "
-                         f"kernel {K} and C={C}")
-    fn = _lib()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    w1, w2 = _step_weights(w1), _step_weights(w2)
-    b1, b2 = b1.contiguous(), b2.contiguous()
-    tmp = [torch.empty_like(x), torch.empty_like(x)]
-    cur = x
-    for s, d in enumerate(dilations):
-        last = s == len(dilations) - 1
-        dst = out if last else tmp[s % 2]
-        err = fn(cur.data_ptr(), dst.data_ptr(), w1[s].data_ptr(), b1[s].data_ptr(),
-                 w2[s].data_ptr(), b2[s].data_ptr(), B, T, C, K, d, slope,
-                 alpha if last else 1.0, beta if last else 0.0, stream)
-        build.check(err, "resblock per-step")
-        cur = dst
-
-
-def resblock_group_per_step(x, weights, kernel_sizes, dilations, slope: float = 0.1):
-    """K1's function by the per-step kernel, one launch per dilation step (a
-    yardstick: no path calls it, it counts no launches). CUDA tensors."""
-    _check(x, weights, "resblock per-step")
-    x = _aligned(x)
-    out = torch.empty_like(x)
-    n = len(kernel_sizes)
-    for i, k in enumerate(kernel_sizes):
-        _per_step_chain(x, *weights[4 * i: 4 * i + 4], k, dilations[i], slope, out, 1.0 / n,
-                        0.0 if i == 0 else 1.0)
-    return out
-
-
-def resblock_chain_per_step(x, w1, b1, w2, b2, kernel_size, dilations=(1, 3, 5),
-                            slope: float = 0.1):
-    """K2's function by the per-step kernel (a yardstick, as
-    `resblock_group_per_step`)."""
-    _check(x, (w1, b1, w2, b2), "resblock per-step")
-    x = _aligned(x)
-    out = torch.empty_like(x)
-    _per_step_chain(x, w1, b1, w2, b2, kernel_size, dilations, slope, out, 1.0, 0.0)
-    return out
 
 
 def _run_chain_tp(x, w1, b1, w2, b2, kernel_size, dilations, slope, model: Axis,
@@ -689,8 +624,7 @@ def _run_chain_tp(x, w1, b1, w2, b2, kernel_size, dilations, slope, model: Axis,
 
 def _launch_chain_tp(x, w1, b1, w2, b2, kernel_size: int, dilations: Sequence[int],
                      slope: float, model: Axis) -> torch.Tensor:
-    """K2's partial-sum launches on CUDA tensors (the forward of
-    `ChainTPFunction`)."""
+    """K2's partial-sum launches on CUDA tensors."""
     _check(x, (w1, b1, w2, b2), "resblock_chain_tp")
     return _run_chain_tp(_aligned(x), w1, b1, w2, b2, kernel_size, dilations, slope, model,
                          "resblock_chain_tp")
@@ -699,9 +633,9 @@ def _launch_chain_tp(x, w1, b1, w2, b2, kernel_size: int, dilations: Sequence[in
 def _launch_group_tp(x, weights, kernel_sizes: Sequence[int],
                      dilations: Sequence[Sequence[int]], slope: float,
                      model: Axis) -> torch.Tensor:
-    """A K1 stage on a tensor-parallel rank (the forward of `GroupTPFunction`):
-    the whole chains by K1's launch (alpha 1 / n), then each sharded chain by
-    the partial-sum launches, added / n after its last all-reduce."""
+    """A K1 stage on a tensor-parallel rank: the whole chains by K1's launch
+    (alpha 1 / n), then each sharded chain by the partial-sum launches,
+    added / n after its last all-reduce."""
     _check(x, weights, "resblock_group_tp")
     x = _aligned(x)
     out = torch.empty_like(x)
@@ -724,76 +658,15 @@ def _launch_group_tp(x, weights, kernel_sizes: Sequence[int],
     return out
 
 
-class ChainFunction(torch.autograd.Function):
-    """K2 under autograd: `forward` (the kernel's launches; any callable
-    with `resblock_chain_reference`'s signature) computes the output, the
-    float32 plain chain's autograd the gradients of x, w1, b1, w2, b2."""
-
-    @staticmethod
-    def forward(ctx, forward, kernel_size, dilations, slope, x, w1, b1, w2, b2):
-        ctx.save_for_backward(x, w1, b1, w2, b2)
-        ctx.args = (kernel_size, dilations, slope)
-        return forward(x, w1, b1, w2, b2, kernel_size, dilations, slope)
-
-    @staticmethod
-    def backward(ctx, grad):
-        k, d, slope = ctx.args
-        grads = plain_vjp(lambda *t: resblock_chain_reference(*t, k, d, slope),
-                          ctx.saved_tensors, ctx.needs_input_grad[4:], grad)
-        return (None,) * 4 + grads
-
-
-class GroupFunction(torch.autograd.Function):
-    """K1 under autograd: `forward` (the kernel's launches; any callable with
-    `resblock_group_reference`'s signature) computes the output, the float32
-    plain stage's autograd the gradients of x and of each tensor of the flat
-    weight tuple, in order."""
-
-    @staticmethod
-    def forward(ctx, forward, kernel_sizes, dilations, slope, x, *weights):
-        ctx.save_for_backward(x, *weights)
-        ctx.args = (kernel_sizes, dilations, slope)
-        return forward(x, weights, kernel_sizes, dilations, slope)
-
-    @staticmethod
-    def backward(ctx, grad):
-        ks, ds, slope = ctx.args
-        grads = plain_vjp(lambda x, *w: resblock_group_reference(x, w, ks, ds, slope),
-                          ctx.saved_tensors, ctx.needs_input_grad[4:], grad)
-        return (None,) * 4 + grads
-
-
-class GroupPackedFunction(torch.autograd.Function):
-    """K1 on the packed layout under autograd: `forward` (the launches; any
-    callable with `resblock_group_packed_reference`'s signature) computes
-    the output; the backward unfolds, takes the float32 plain stage's
-    autograd and refolds (`resblock_group_packed_reference`'s autograd)."""
-
-    @staticmethod
-    def forward(ctx, forward, kernel_sizes, dilations, channels, t_valid, slope, x, *weights):
-        ctx.save_for_backward(x, *weights)
-        ctx.args = (kernel_sizes, dilations, channels, t_valid, slope)
-        return forward(x, weights, kernel_sizes, dilations, channels, t_valid, slope)
-
-    @staticmethod
-    def backward(ctx, grad):
-        ks, ds, c, t, slope = ctx.args
-        grads = plain_vjp(
-            lambda x, *w: resblock_group_packed_reference(x, w, ks, ds, c, t, slope),
-            ctx.saved_tensors, ctx.needs_input_grad[6:], grad)
-        return (None,) * 6 + grads
-
-
 @recorded
 def resblock_chain(x: torch.Tensor, w1, b1, w2, b2, kernel_size: int,
                    dilations: Sequence[int] = (1, 3, 5),
                    slope: float = 0.1) -> torch.Tensor:
     """K2: one ResBlock chain on (B, T, C) float32."""
-    if x.device.type == "cpu":
-        return resblock_chain_reference(x, w1, b1, w2, b2, kernel_size,
-                                        dilations, slope)
-    return ChainFunction.apply(_launch_chain, kernel_size, tuple(dilations), slope,
-                               x, w1, b1, w2, b2)
+    ds = tuple(dilations)
+    return run_kernel(lambda *t: _launch_chain(*t, kernel_size, ds, slope),
+                      lambda *t: resblock_chain_reference(*t, kernel_size, ds, slope),
+                      x, w1, b1, w2, b2)
 
 
 @recorded
@@ -801,51 +674,10 @@ def resblock_group(x: torch.Tensor, weights: tuple, kernel_sizes: Sequence[int],
                    dilations: Sequence[Sequence[int]],
                    slope: float = 0.1) -> torch.Tensor:
     """K1: mean over one decoder stage's parallel ResBlock chains."""
-    if x.device.type == "cpu":
-        return resblock_group_reference(x, weights, kernel_sizes, dilations, slope)
-    return GroupFunction.apply(_launch_group, tuple(kernel_sizes),
-                               tuple(tuple(d) for d in dilations), slope, x, *weights)
-
-
-class ChainTPFunction(torch.autograd.Function):
-    """The partial-sum chain under autograd: `forward` (the launches and
-    all-reduces; any callable with `resblock_chain_partial_reference`'s
-    signature) computes the whole chain, the float32 plain partial chain's
-    autograd, collectives included, the gradients of x (whole), w1, b1, w2
-    (the rank's shards) and b2 (whole)."""
-
-    @staticmethod
-    def forward(ctx, forward, kernel_size, dilations, slope, model, x, w1, b1, w2, b2):
-        ctx.save_for_backward(x, w1, b1, w2, b2)
-        ctx.args = (kernel_size, dilations, slope, model)
-        return forward(x, w1, b1, w2, b2, kernel_size, dilations, slope, model)
-
-    @staticmethod
-    def backward(ctx, grad):
-        k, d, slope, model = ctx.args
-        grads = plain_vjp(lambda *t: resblock_chain_partial_reference(*t, k, d, slope, model),
-                          ctx.saved_tensors, ctx.needs_input_grad[5:], grad)
-        return (None,) * 5 + grads
-
-
-class GroupTPFunction(torch.autograd.Function):
-    """A K1 stage on a tensor-parallel rank under autograd, as
-    `GroupFunction` with `resblock_group_partial_reference` for the
-    backward."""
-
-    @staticmethod
-    def forward(ctx, forward, kernel_sizes, dilations, slope, model, x, *weights):
-        ctx.save_for_backward(x, *weights)
-        ctx.args = (kernel_sizes, dilations, slope, model)
-        return forward(x, weights, kernel_sizes, dilations, slope, model)
-
-    @staticmethod
-    def backward(ctx, grad):
-        ks, ds, slope, model = ctx.args
-        grads = plain_vjp(
-            lambda x, *w: resblock_group_partial_reference(x, w, ks, ds, slope, model),
-            ctx.saved_tensors, ctx.needs_input_grad[5:], grad)
-        return (None,) * 5 + grads
+    ks, ds = tuple(kernel_sizes), tuple(tuple(d) for d in dilations)
+    return run_kernel(lambda x, *w: _launch_group(x, w, ks, ds, slope),
+                      lambda x, *w: resblock_group_reference(x, w, ks, ds, slope),
+                      x, *weights)
 
 
 @recorded
@@ -853,11 +685,11 @@ def resblock_chain_tp(x: torch.Tensor, w1, b1, w2, b2, kernel_size: int,
                       dilations: Sequence[int], slope: float, model: Axis) -> torch.Tensor:
     """K2 on a tensor-parallel rank: one ResBlock chain on (B, T, C) float32
     from the rank's shards (see the module's docstring)."""
-    if x.device.type == "cpu":
-        return resblock_chain_partial_reference(x, w1, b1, w2, b2, kernel_size, dilations,
-                                                slope, model)
-    return ChainTPFunction.apply(_launch_chain_tp, kernel_size, tuple(dilations), slope, model,
-                                 x, w1, b1, w2, b2)
+    ds = tuple(dilations)
+    return run_kernel(
+        lambda *t: _launch_chain_tp(*t, kernel_size, ds, slope, model),
+        lambda *t: resblock_chain_partial_reference(*t, kernel_size, ds, slope, model),
+        x, w1, b1, w2, b2)
 
 
 @recorded
@@ -866,11 +698,11 @@ def resblock_group_tp(x: torch.Tensor, weights: tuple, kernel_sizes: Sequence[in
                       model: Axis) -> torch.Tensor:
     """K1 on a tensor-parallel rank: the mean over one decoder stage's
     chains, the sharded ones (C_M < C) by the partial-sum launches."""
-    if x.device.type == "cpu":
-        return resblock_group_partial_reference(x, weights, kernel_sizes, dilations, slope,
-                                                model)
-    return GroupTPFunction.apply(_launch_group_tp, tuple(kernel_sizes),
-                                 tuple(tuple(d) for d in dilations), slope, model, x, *weights)
+    ks, ds = tuple(kernel_sizes), tuple(tuple(d) for d in dilations)
+    return run_kernel(
+        lambda x, *w: _launch_group_tp(x, w, ks, ds, slope, model),
+        lambda x, *w: resblock_group_partial_reference(x, w, ks, ds, slope, model),
+        x, *weights)
 
 
 @recorded
@@ -880,9 +712,8 @@ def resblock_group_packed(x: torch.Tensor, weights: tuple, kernel_sizes: Sequenc
     """K1 on the packed lane layout: x (B, R, P * C) float32, P = 128 // C,
     C = channels in (128, 64, 32), its first t_valid <= R * P steps valid
     (see the module's docstring); returns the same layout."""
-    if x.device.type == "cpu":
-        return resblock_group_packed_reference(x, weights, kernel_sizes, dilations, channels,
-                                               t_valid, slope)
-    return GroupPackedFunction.apply(_launch_group_packed, tuple(kernel_sizes),
-                                     tuple(tuple(d) for d in dilations), channels, t_valid,
-                                     slope, x, *weights)
+    static = (tuple(kernel_sizes), tuple(tuple(d) for d in dilations), channels, t_valid,
+              slope)
+    return run_kernel(lambda x, *w: _launch_group_packed(x, w, *static),
+                      lambda x, *w: resblock_group_packed_reference(x, w, *static),
+                      x, *weights)

@@ -12,7 +12,7 @@ crossfades the two with a sin^2 fade. A block whose volume is below
 returns zeros.
 
 Two paths, routed as the reference routes them:
-- **fused** (RMVPE pitch on an f0 model, `RVC_TPU_RT_FUSED` not "0"): one
+- **fused** (RMVPE pitch on an f0 model): one
   block program (`build_block_program`) on the pipeline's device: log-mel
   [K4] of the buffer's tail -> RMVPE -> decode -> range gate -> autotune ->
   semitone shift, the (B, F) pitch state rolled left by one block and its
@@ -42,7 +42,6 @@ float32.
 
 from __future__ import annotations
 
-import os
 import time
 from types import SimpleNamespace
 
@@ -235,8 +234,6 @@ class Realtime:
 
     # ------------------------------------------------------------------
     def _fused_block_ok(self) -> bool:
-        if os.environ.get("RVC_TPU_RT_FUSED", "1") != "1":
-            return False
         return self.f0_method == "rmvpe" and self.rvc.pipeline.synthesizer.use_f0
 
     def _get_block_program(self, use_index: bool = False):

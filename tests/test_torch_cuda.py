@@ -228,20 +228,6 @@ def test_resblock_tile_edges(dev, C, edge):
         _assert_bf16_kernel(got, KR.resblock_chain_reference, x, *weights, 11, (1, 3, 5))
 
 
-@pytest.mark.parametrize("C", [32, 128, 256])
-def test_resblock_per_step_yardstick(dev, C):
-    """The per-step kernel's K1 (`resblock_group_per_step`, the yardstick
-    chip_smoke.py times) at the same bars, counting no launches."""
-    g = _gen(dev, 3 * C)
-    x = torch.randn((2, 500, C), device=dev, generator=g)
-    weights = sum((_weights(dev, g, C, K) for K in (3, 7, 11)), ())
-    dil = ((1, 3, 5),) * 3
-    before = dict(LAUNCHES)
-    got = KR.resblock_group_per_step(x, weights, (3, 7, 11), dil)
-    assert dict(LAUNCHES) == before
-    _assert_bf16_kernel(got, KR.resblock_group_reference, x, weights, (3, 7, 11), dil)
-
-
 @pytest.mark.parametrize("nprobe", [1, 4])
 def test_ivf_search_and_blend(dev, nprobe):
     """Retrieval on the card (cuBLAS float32 product, torch.topk) against
@@ -702,20 +688,23 @@ def _step_losses_and_grads(cfg, net_g, net_d, batch, draws):
 
 def _bf16_host(monkeypatch):
     """The decoder's K1/K2 calls on host tensors take the card's arithmetic:
-    their Functions with the plain version's bf16 emulation as the forward."""
-    import functools
-
+    `KernelFunction` with the plain version's bf16 emulation as the forward."""
     from rvc_tpu_torch.models import generators, layers
+    from rvc_tpu_torch.ops.kernels import KernelFunction
 
     def group(x, weights, kernel_sizes, dilations, slope=0.1):
-        return KR.GroupFunction.apply(
-            functools.partial(KR.resblock_group_reference, bf16_operands=True),
-            tuple(kernel_sizes), tuple(map(tuple, dilations)), slope, x, *weights)
+        ks, ds = tuple(kernel_sizes), tuple(map(tuple, dilations))
+        return KernelFunction.apply(
+            lambda x, *w: KR.resblock_group_reference(x, w, ks, ds, slope, bf16_operands=True),
+            lambda x, *w: KR.resblock_group_reference(x, w, ks, ds, slope), x, *weights)
 
     def chain(x, w1, b1, w2, b2, kernel_size, dilations=(1, 3, 5), slope=0.1):
-        return KR.ChainFunction.apply(
-            functools.partial(KR.resblock_chain_reference, bf16_operands=True),
-            kernel_size, tuple(dilations), slope, x, w1, b1, w2, b2)
+        ds = tuple(dilations)
+        return KernelFunction.apply(
+            lambda *t: KR.resblock_chain_reference(*t, kernel_size, ds, slope,
+                                                   bf16_operands=True),
+            lambda *t: KR.resblock_chain_reference(*t, kernel_size, ds, slope),
+            x, w1, b1, w2, b2)
 
     monkeypatch.setattr(generators, "resblock_group", group)
     monkeypatch.setattr(layers, "resblock_chain", chain)

@@ -65,7 +65,9 @@ UPS_GAIN = 20.0           # see torch_port_helpers.synthesizers
 @pytest.fixture(scope="module", autouse=True)
 def two_threads_no_noise():
     """Torch on two threads beside the suite's other workers; the JAX
-    programs traced without source noise (they read it when built)."""
+    programs traced without source noise (they read it when built), and
+    the JAX engine on its fused route, which it reads from RVC_TPU_RT_FUSED
+    (the port's engine has no such switch)."""
     n = torch.get_num_threads()
     torch.set_num_threads(2)
     with pytest.MonkeyPatch.context() as mp:

@@ -32,6 +32,9 @@ from torch_port_helpers import assert_nested, span_tree
 
 @pytest.fixture(scope="module", autouse=True)
 def two_threads_no_noise():
+    """Torch on two threads; the JAX reference without source noise and on
+    its fused route, which it reads from RVC_TPU_RT_FUSED (the port's
+    engine has no such switch)."""
     n = torch.get_num_threads()
     torch.set_num_threads(2)
     with pytest.MonkeyPatch.context() as mp:

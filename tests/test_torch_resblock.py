@@ -12,10 +12,10 @@ import pytest
 import torch
 
 from rvc_tpu.ops.pallas import resblock as R
-from rvc_tpu_torch.ops.kernels import LAUNCHES
+from rvc_tpu_torch.ops.kernels import LAUNCHES, KernelFunction
 from rvc_tpu_torch.models.layers import ResBlock
 from rvc_tpu_torch.ops.kernels import resblock as KR
-from rvc_tpu_torch.ops.kernels.resblock import (GroupPackedFunction, kernel_weights,
+from rvc_tpu_torch.ops.kernels.resblock import (kernel_weights,
                                                 resblock_chain, resblock_chain_reference,
                                                 resblock_group, resblock_group_packed,
                                                 resblock_group_packed_reference,
@@ -170,8 +170,8 @@ def test_group_packed_matches_pallas_interpret(C, T):
 
 
 def test_group_packed_gradient_matches_autograd():
-    """`GroupPackedFunction`'s backward (unfold, the plain stage's vjp,
-    refold) against autograd through the plain stage on the unfolded
+    """The packed stage's backward under `KernelFunction` (unfold, the plain
+    stage's vjp, refold) against autograd through the plain stage on the unfolded
     steps: every gradient within 1e-5 (rel_l2); the steps past T get
     none."""
     rng = np.random.default_rng(41)
@@ -181,8 +181,8 @@ def test_group_packed_gradient_matches_autograd():
     weights = tuple(torch.from_numpy(w).requires_grad_()
                     for w in sum((_weights(rng, C, K) for K in (3, 7, 11)), ()))
     g = torch.from_numpy(rng.standard_normal((1, rows, P * C)).astype(np.float32))
-    out = GroupPackedFunction.apply(resblock_group_packed_reference, (3, 7, 11), (DIL,) * 3, C,
-                                    T, 0.1, x, *weights)
+    plain = lambda x, *w: resblock_group_packed_reference(x, w, (3, 7, 11), (DIL,) * 3, C, T)
+    out = KernelFunction.apply(plain, plain, x, *weights)
     got = torch.autograd.grad(out, (x, *weights), g)
     xu = x.detach().reshape(1, rows * P, C)[:, :T].clone().requires_grad_()
     ref_out = resblock_group_reference(xu, weights, (3, 7, 11), (DIL,) * 3)

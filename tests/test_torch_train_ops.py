@@ -1,7 +1,7 @@
 """Training's ops, losses and modules in the port against the JAX package,
 on the same numpy inputs and parameters (small widths): the training
-spectrograms, the segment slices, the losses (rel 1e-5), the autograd
-Functions of K1-K3 through their swappable forward, the posterior encoder
+spectrograms, the segment slices, the losses (rel 1e-5), K1-K3 under the
+kernels' autograd Function with a swappable forward, the posterior encoder
 and the training forward (ROADMAP's module bar: RMSE < 0.01, corr > 0.99),
 the discriminators' outputs and feature maps, and the upstream D
 checkpoint converter."""
@@ -23,6 +23,7 @@ from rvc_tpu.utils import weights as W
 from rvc_tpu_torch.models.discriminators import PERIODS_V3, MultiPeriodDiscriminator
 from rvc_tpu_torch.ops import commons as C
 from rvc_tpu_torch.ops import stft as S
+from rvc_tpu_torch.ops.kernels import KernelFunction
 from rvc_tpu_torch.ops.kernels import attention as KA
 from rvc_tpu_torch.ops.kernels import resblock as KR
 from rvc_tpu_torch.train import losses as L
@@ -120,13 +121,15 @@ def _k1_inputs(C_=16, T=40):
 
 
 def test_k1_function_gives_every_weight_its_gradient():
-    """K1's Function with the bf16-emulating plain forward in place of the
-    kernel: the forward is that emulation's, and x and each of the 12
+    """K1 under `KernelFunction` with the bf16-emulating plain forward in place
+    of the kernel: the forward is that emulation's, and x and each of the 12
     tensors of the flat weight tuple get the float32 plain stage's own
     gradient, in order."""
     x, ws, ks, ds = _k1_inputs()
     fwd = functools.partial(KR.resblock_group_reference, bf16_operands=True)
-    out = KR.GroupFunction.apply(fwd, ks, ds, 0.1, x, *ws)
+    out = KernelFunction.apply(lambda x, *w: fwd(x, w, ks, ds, 0.1),
+                               lambda x, *w: KR.resblock_group_reference(x, w, ks, ds, 0.1),
+                               x, *ws)
     torch.testing.assert_close(out, fwd(x, ws, ks, ds, 0.1), rtol=0, atol=0)
     g = torch.randn_like(out)
     got = torch.autograd.grad(out, [x, *ws], g)
@@ -141,7 +144,9 @@ def test_k2_function_gradients():
     x, ws, _, _ = _k1_inputs()
     w = ws[4:8]                                          # the k = 7 chain
     fwd = functools.partial(KR.resblock_chain_reference, bf16_operands=True)
-    out = KR.ChainFunction.apply(fwd, 7, (1, 3, 5), 0.1, x, *w)
+    out = KernelFunction.apply(lambda *t: fwd(*t, 7, (1, 3, 5), 0.1),
+                               lambda *t: KR.resblock_chain_reference(*t, 7, (1, 3, 5), 0.1),
+                               x, *w)
     g = torch.randn_like(out)
     got = torch.autograd.grad(out, [x, *w], g)
     ref = torch.autograd.grad(KR.resblock_chain_reference(x, *w, 7), [x, *w], g)
@@ -150,7 +155,7 @@ def test_k2_function_gradients():
 
 
 def test_k3_function_gradients_with_ragged_keys():
-    """K3's Function: q, k, v and both rel-pos tables get the plain
+    """K3 under `KernelFunction`: q, k, v and both rel-pos tables get the plain
     version's gradients; key_lens none. The garbage query rows past a
     length take a zero gradient, as the TextEncoder's x_mask gives them."""
     rng = np.random.default_rng(6)
@@ -159,7 +164,8 @@ def test_k3_function_gradients_with_ragged_keys():
     ek, ev = (t(rng.standard_normal((1, 21, 16)).astype(np.float32)).requires_grad_()
               for _ in range(2))
     lens = torch.tensor([24, 13])
-    out = KA.RelAttentionFunction.apply(KA.rel_attention_reference, 10, q, k, v, ek, ev, lens)
+    plain = lambda q, k, v, ek, ev, lens: KA.rel_attention_reference(q, k, v, ek, ev, 10, lens)
+    out = KernelFunction.apply(plain, plain, q, k, v, ek, ev, lens)
     valid = (torch.arange(24)[None, :] < lens[:, None])[:, None, :, None].float()
     g = torch.randn_like(out) * valid
     got = torch.autograd.grad(out, [q, k, v, ek, ev], g)
